@@ -1,39 +1,63 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SQLdepth inference path once on one CUDA card.
+"""Drive the PyTorch port's SQLdepth inference path and its self-supervised
+training step on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, one line or a few each; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
-  2. build: the Hopper kernels from sfmnext_tpu_torch/csrc/ with nvcc;
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     at the flagship decoder's shapes (B=4, N=160*512, Q=128, E=32, D=128)
-     and at a ragged N, with the max error and median times (CUDA events);
-  4. slice: SQLdepth at the flagship config (args_files/hisfog/kitti/
+  2. build: the Hopper kernels from sfmnext_tpu_torch/csrc/ with nvcc, one
+     process a source, in parallel;
+  3. kernels: the two forward SQL kernels against their plain PyTorch
+     versions on the card, at the flagship decoder's inference shapes
+     (B=4, N=160*512, Q=128, E=32, D=128) and at a ragged N, with the max
+     error and median times (CUDA events);
+  4. serve: SQLdepth at the flagship config (args_files/hisfog/kitti/
      resnet_320x1024.txt: ResNet-50, 320x1024, bf16, seeded random weights)
      answers 4 requests at batch 1 and 1 at batch 4; every forward must
      launch both kernels exactly once; the fused decoder is held against
      its unfused twin (return_energy=True); forward latencies;
-  5. one JSON line of kernel results, then the result line.
+  5. training kernels: all six kernels (the SQL forwards and backwards, the
+     warp forward and coordinate backward) against their plain versions at
+     the training step's shapes (B=8, 320x1024) and at ragged ones, with
+     median times of the kernel, the plain version and, where one PyTorch
+     call computes the same function, that call (library_ms), and each
+     kernel's bound (the larger of its bytes over 3.35 TB/s and its products
+     over the 989 TFLOP/s bf16 peak);
+  6. train: the training step at the flagship config with --no_ssim and no
+     augmentation (batch 8, 320x1024, ResNet-50, bf16 autocast, seeded
+     weights, a fixed synthetic batch): 5 steps, each launching the SQL
+     kernels once and the warp kernels twice, forward and backward; finite
+     loss, parameters and BatchNorm statistics that move; one kernel step
+     held against one plain step on the same weights and batch; median
+     step time, images/s and peak memory. With --profile, a torch.profiler
+     breakdown of two steps (top kernels, device idle share; the trace into
+     runs/train_step_trace.json);
+  7. one JSON line of kernel results, then the result line.
 Without a visible CUDA card it exits 1 and prints no result. It imports
-nothing of JAX and nothing of the JAX package (sfmnext_tpu): it reads the
-argfile itself and draws its images with numpy.
+nothing of JAX and nothing of the JAX package (sfmnext_tpu).
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from sfmnext_tpu_torch.config import parse_options
+from sfmnext_tpu_torch.data.synthetic import make_batch
 from sfmnext_tpu_torch.device import cuda_device, disable_tf32
-from sfmnext_tpu_torch.ops import _build, sql_attention, sql_kernel
+from sfmnext_tpu_torch.ops import _build, sql_attention, sql_kernel, warp, warp_kernel
 from sfmnext_tpu_torch.sql_depth import SQLdepth
+from sfmnext_tpu_torch.training import pipeline
+from sfmnext_tpu_torch.training.builder import build_models
+from sfmnext_tpu_torch.training.step import make_optimizer, make_train_step
 
 ROOT = Path(__file__).resolve().parent
 ARGFILE = ROOT / "args_files" / "hisfog" / "kitti" / "resnet_320x1024.txt"
@@ -47,26 +71,46 @@ DEPTH_TOL = dict(rtol=2e-2, atol=2e-2)
 FUSED_TOL = dict(rtol=2e-2, atol=5e-2)  # fused vs unfused decoder
 TIMING_RUNS = 25
 LATENCY_RUNS = 20
-KERNELS = {  # wrapper name -> the TPU kernel it replaces
-    "sql_summary": "sfmnext_tpu/ops/pallas/sql_kernel.py:77",  # _fq_fwd_kernel
-    "sql_depth": "sfmnext_tpu/ops/pallas/sql_kernel.py:237",   # _bins_fwd_kernel
+SQL_SOURCE = "sfmnext_tpu_torch/csrc/sql_kernel.cu"
+WARP_SOURCE = "sfmnext_tpu_torch/csrc/warp_kernel.cu"
+KERNELS = {  # counter name -> (source, the TPU kernel it replaces)
+    "sql_summary": (SQL_SOURCE, "sfmnext_tpu/ops/pallas/sql_kernel.py:77"),     # _fq_fwd_kernel
+    "sql_depth": (SQL_SOURCE, "sfmnext_tpu/ops/pallas/sql_kernel.py:237"),      # _bins_fwd_kernel
+    "sql_summary_bwd": (SQL_SOURCE, "sfmnext_tpu/ops/pallas/sql_kernel.py:107"),  # _fq_bwd_kernel
+    "sql_depth_bwd": (SQL_SOURCE, "sfmnext_tpu/ops/pallas/sql_kernel.py:245"),  # _bins_bwd_kernel
+    "warp_border": (WARP_SOURCE, "sfmnext_tpu/ops/pallas/warp_kernel.py:167"),  # _fwd_kernel
+    "warp_border_bwd": (WARP_SOURCE, "sfmnext_tpu/ops/pallas/warp_kernel.py:207"),  # _bwd_kernel
 }
-
-
-def flagship_options():
-    """SQLdepth's fields from the flagship argfile (``--flag value`` tokens;
-    its training flags are not read), with KITTI's depth range and the
-    repo's defaults: bf16 compute, seed 0, random weights."""
-    tokens = ARGFILE.read_text().split()
-    args = {tok[2:]: nxt for tok, nxt in zip(tokens, tokens[1:] + ["--"])
-            if tok.startswith("--") and not nxt.startswith("--")}
-    ints = ("num_layers", "num_features", "model_dim", "patch_size",
-            "query_nums", "dim_out", "height", "width")
-    return SimpleNamespace(
-        backbone=args["backbone"], **{k: int(args[k]) for k in ints},
-        min_depth=0.001, max_depth=80.0, compute_dtype="bfloat16", seed=0,
-        load_pretrained_model=False, load_pt_folder=None,
-    )
+COUNTERS = {
+    "sql_summary": sql_kernel.sql_summary, "sql_depth": sql_kernel.sql_depth,
+    "sql_summary_bwd": sql_kernel.sql_summary_bwd, "sql_depth_bwd": sql_kernel.sql_depth_bwd,
+    "warp_border": warp_kernel.warp_border, "warp_border_bwd": warp_kernel.warp_border_bwd,
+}
+# launches a training step makes: one forward and one backward of each SQL
+# op, and two warps (frames -1 and +1), each with its coordinate backward
+STEP_LAUNCHES = {"sql_summary": 1, "sql_depth": 1, "sql_summary_bwd": 1,
+                 "sql_depth_bwd": 1, "warp_border": 2, "warp_border_bwd": 2}
+TRAIN_ARGS = [str(ARGFILE), "--no_ssim"]  # batch 8, bf16; augmentation off
+TRAIN_STEPS = 5
+B_TRAIN = 8
+HW_TRAIN = (320, 1024)
+# kernel vs plain at the training shapes. The SQL backward kernels round
+# where their plain versions round but sum in another order, so a bf16
+# rounding can fall the other way (bf16 is 2^-8 = 3.9e-3): each output
+# within 1e-2 of its largest value. The warp kernels compute the plain
+# float32 arithmetic, contracted into FMAs: 1e-5 of the largest value.
+BWD_SCALED_TOL = 1e-2
+WARP_SCALED_TOL = 1e-5
+# kernel step vs plain step (same weights and batch, dropout and tie-break
+# noise off): the two paths round the SQL ops to bf16 at different points
+# and the bf16 network carries that through; loss to 1e-2 relative, each
+# module's gradient to 5e-2 of its norm
+STEP_LOSS_RTOL = 1e-2
+STEP_GRAD_RTOL = 5e-2
+# the card's published peaks (H100 SXM, NVIDIA's data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def synthetic_images(n, height, width, seed=0):
@@ -163,7 +207,7 @@ def check_kernels(dev):
 
 def drive_slice(dev):
     """Phase 4. Returns the kernels' launch counts over the 5 requests."""
-    opt = flagship_options()
+    opt = parse_options([str(ARGFILE)])  # bf16, seed 0, random weights
     model = SQLdepth(opt, dev)
     images = synthetic_images(4, opt.height, opt.width)
 
@@ -220,10 +264,321 @@ def drive_slice(dev):
     return launches
 
 
+def scaled_err(got, want):
+    """(max abs error, max abs error over the largest |want|)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def bound_ms(nbytes, flops, peak_flops=BF16_FLOPS):
+    """The least time for the work: bytes over the memory rate or products
+    over the peak rate, whichever is larger; and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sql_bounds(b, n, q, e, d):
+    """{kernel: (bytes, products)} of the four SQL kernels: each input read
+    once and each output written once (bf16 2 bytes, float32 4)."""
+    s_bytes, q_bytes = 2 * b * n * e, 2 * b * q * e
+    bins_in = 2 * q * d + 4 * d + 4 * b * d
+    return {
+        "sql_summary": (s_bytes + q_bytes + 4 * b * q * e + 8 * b * q, 4 * b * n * q * e),
+        "sql_depth": (s_bytes + q_bytes + bins_in + 4 * b * n,
+                      2 * b * n * q * e + 2 * b * n * q * d),
+        "sql_summary_bwd": (2 * s_bytes + q_bytes + 8 * b * q * e + 12 * b * q,
+                            10 * b * n * q * e),
+        "sql_depth_bwd": (2 * s_bytes + q_bytes + bins_in + 4 * b * n + 4 * b * q * e
+                          + 4 * q * d + 4 * d + 4 * b * d,
+                          6 * b * n * q * e + 6 * b * n * q * d),
+    }
+
+
+def warp_inputs(dev, b, h, w, seed):
+    """A near-identity warp as the training step makes them, with samples
+    past every border: image, pixel coordinates, an output cotangent."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    img = torch.rand(b, h, w, 3, device=dev, generator=gen)
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                            torch.arange(w, device=dev, dtype=torch.float32), indexing="ij")
+    fy = ys + 8 * (2 * torch.rand(b, h, w, device=dev, generator=gen) - 1)
+    fx = xs + 40 * (2 * torch.rand(b, h, w, device=dev, generator=gen) - 1)
+    g = torch.randn(b, h, w, 3, device=dev, generator=gen)
+    return img, fy, fx, g
+
+
+def plain_warp_bwd(img, fy, fx, g):
+    fy, fx = fy.clone().requires_grad_(), fx.clone().requires_grad_()
+    return torch.autograd.grad(warp.sample_border(img, fy, fx), (fy, fx), g)
+
+
+def check_training_kernels(dev):
+    """Phase 5. Returns {name: {max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by}} at the training step's shapes."""
+    h, w = HW_TRAIN
+    results = {}
+    for b, hw, q, e, d in ((B_TRAIN, (h // 2, w // 2), Q, E, D), (2, HW_RAGGED, Q, E, D),
+                           (2, (30, 50), 120, 56, 100)):
+        main = b == B_TRAIN
+        g = torch.Generator(device=dev).manual_seed(b + q)
+        feats = torch.randn(b, *hw, e, generator=g, device=dev).to(torch.bfloat16)
+        queries = (0.3 * torch.randn(b, q, e, generator=g, device=dev)).to(torch.bfloat16)
+        wt = (0.2 * torch.randn(q, d, generator=g, device=dev)).to(torch.bfloat16)
+        bias = 0.1 * torch.randn(d, generator=g, device=dev)
+        centers = torch.sort(0.001 + 79.999 * torch.rand(b, d, generator=g, device=dev),
+                             dim=1).values
+        gsum = torch.randn(b, q, e, generator=g, device=dev)
+        gdepth = torch.randn(b, *hw, 1, generator=g, device=dev)
+        out, m, z = sql_attention.sql_summary_fwd(feats, queries)
+        delta = (gsum * out).sum(-1)
+        bins = (feats, queries, wt, bias, centers)
+        cases = {
+            "sql_summary": (lambda: sql_kernel.sql_summary_fwd(feats, queries)[0],
+                            lambda: sql_attention.sql_summary_fwd(feats, queries)[0],
+                            SUMMARY_TOL),
+            "sql_depth": (lambda: sql_kernel.sql_depth_fwd(*bins),
+                          lambda: plain_depth(*bins), DEPTH_TOL),
+            "sql_summary_bwd": (
+                lambda: sql_kernel.sql_summary_bwd(feats, queries, gsum, m, z, delta),
+                lambda: sql_attention.sql_summary_bwd(feats, queries, gsum, m, z, delta),
+                BWD_SCALED_TOL),
+            "sql_depth_bwd": (lambda: sql_kernel.sql_depth_bwd(*bins, gdepth),
+                              lambda: sql_attention.sql_depth_bwd(*bins, gdepth),
+                              BWD_SCALED_TOL),
+        }
+        library = {}
+        if main:
+            # one PyTorch call computing the same function (never used by
+            # the port): attention with scale 1 over the pixels as keys and
+            # values, queries [B,1,Q,E], keys = values = features [B,1,N,E]
+            sq = queries[:, None].clone().requires_grad_()
+            sk = feats.reshape(b, 1, -1, e).clone().requires_grad_()
+            sdpa_out = F.scaled_dot_product_attention(sq, sk, sk, scale=1.0)
+            gout = gsum[:, None].to(torch.bfloat16)
+            library["sql_summary"] = lambda: F.scaled_dot_product_attention(sq, sk, sk, scale=1.0)
+            library["sql_summary_bwd"] = lambda: torch.autograd.grad(
+                sdpa_out, (sq, sk), gout, retain_graph=True)
+        for name, (kernel, plain, tol) in cases.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = []
+            for a, x in zip(got, want):
+                require(a.shape == x.shape and a.dtype == x.dtype,
+                        f"{name}: {a.shape} {a.dtype} != {x.shape} {x.dtype}")
+                require(bool(torch.isfinite(a.float()).all()), f"{name}: non-finite output")
+                if isinstance(tol, dict):
+                    err, ok = compare(a, x, **tol)
+                else:
+                    err, rel = scaled_err(a, x)
+                    ok = rel <= tol
+                errs.append(err)
+                require(ok, f"{name} disagrees with its plain version at B={b} N={feats.shape[1] * feats.shape[2]} "
+                            f"Q={q} E={e} D={d}: max_abs_err {err:.4e} ({tol})")
+            line = (f"[train-kernel] {name} B={b} N={hw[0] * hw[1]} Q={q} E={e} D={d}: "
+                    f"max_abs_err {max(errs):.4e} ({tol})")
+            if main:
+                nbytes, flops = sql_bounds(b, hw[0] * hw[1], q, e, d)[name]
+                bms, by = bound_ms(nbytes, flops)
+                ms, plain_ms = median_ms(kernel), median_ms(plain)
+                lib_ms = median_ms(library[name]) if name in library else None
+                results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bms:.4f} ms "
+                         f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            print(line, flush=True)
+
+    for b, (hh, ww) in ((B_TRAIN, HW_TRAIN), (2, HW_RAGGED)):
+        main = b == B_TRAIN
+        img, fy, fx, g = warp_inputs(dev, b, hh, ww, seed=hh)
+        cases = {
+            "warp_border": (lambda: warp_kernel.warp_border_fwd(img, fy, fx),
+                            lambda: warp.sample_border(img, fy, fx)),
+            "warp_border_bwd": (lambda: warp_kernel.warp_border_bwd(img, fy, fx, g),
+                                lambda: plain_warp_bwd(img, fy, fx, g)),
+        }
+        library = {}
+        if main:
+            # F.grid_sample (border, align_corners=True) on the NCHW image at
+            # the normalised grid, and its coordinate gradient alone
+            img_nchw = img.permute(0, 3, 1, 2).contiguous()
+            grid = torch.stack([fx / (ww - 1) * 2 - 1, fy / (hh - 1) * 2 - 1], dim=-1)
+            g_nchw = g.permute(0, 3, 1, 2).contiguous()
+            library["warp_border"] = lambda: F.grid_sample(
+                img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)
+            library["warp_border_bwd"] = lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g_nchw, img_nchw, grid, 0, 1, True, (False, True))
+        n_out = b * hh * ww
+        nbytes = {"warp_border": 4 * (b * hh * ww * 3 + 2 * n_out + 3 * n_out),
+                  "warp_border_bwd": 4 * (b * hh * ww * 3 + 2 * n_out + 3 * n_out + 2 * n_out)}
+        flops = {"warp_border": 40 * n_out, "warp_border_bwd": 60 * n_out}
+        for name, (kernel, plain) in cases.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = []
+            for a, x in zip(got, want):
+                require(bool(torch.isfinite(a).all()), f"{name}: non-finite output")
+                err, rel = scaled_err(a, x)
+                errs.append(err)
+                require(rel <= WARP_SCALED_TOL,
+                        f"{name} disagrees with its plain version at {(b, hh, ww)}: {err:.4e}")
+            line = (f"[train-kernel] {name} {b}x{hh}x{ww}x3: max_abs_err {max(errs):.4e} "
+                    f"(scaled {WARP_SCALED_TOL})")
+            if main:
+                bms, by = bound_ms(nbytes[name], flops[name], F32_FLOPS)
+                ms, plain_ms = median_ms(kernel), median_ms(plain)
+                lib_ms = median_ms(library[name])
+                results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                         f"bound {bms:.4f} ms ({by}: {nbytes[name] / 1e6:.1f} MB)")
+            print(line, flush=True)
+    return results
+
+
+def train_batch(dev, opt):
+    """The fixed synthetic batch (data/synthetic.py) on the card."""
+    batch = make_batch(opt.batch_size, opt.height, opt.width, tuple(opt.frame_ids), seed=0)
+    batch.pop("depth_gt")
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def counts():
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def drive_training(dev, profile=False):
+    """Phase 6. Returns the kernels' launch counts over the timed steps."""
+    opt = parse_options(TRAIN_ARGS)
+    require((opt.batch_size, opt.height, opt.width) == (B_TRAIN, *HW_TRAIN),
+            f"unexpected training config {opt.batch_size}x{opt.height}x{opt.width}")
+    batch = train_batch(dev, opt)
+    models = build_models(opt, dev, train=True)
+    adam, scheduler = make_optimizer(opt, models, steps_per_epoch=1000)
+    step = make_train_step(opt, models, adam, scheduler)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    watched = {
+        "encoder.conv1": models.encoder.encoder.encoder.conv1.weight,
+        "depth.conv3x3": models.depth.conv3x3.weight,
+        "depth.prob": models.depth.convert_to_prob[0].weight,
+        "pose.pose_conv": models.pose.pose_conv.weight,
+    }
+    bn = models.encoder.encoder.encoder.bn1
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    bn_before = (bn.running_mean.clone(), bn.running_var.clone())
+
+    step(batch, gen)  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        start = counts()
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        loss = float(metrics["loss"])  # syncs
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        made = {k: v - start[k] for k, v in counts().items()}
+        require(made == STEP_LAUNCHES, f"a step launched {made}, not {STEP_LAUNCHES}")
+        require(np.isfinite(loss), f"non-finite loss {loss}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = {k: float((v.detach() - before[k]).abs().max()) for k, v in watched.items()}
+    require(all(m > 0 for m in moved.values()), f"parameters did not move: {moved}")
+    bn_moved = (float((bn.running_mean - bn_before[0]).abs().max()),
+                float((bn.running_var - bn_before[1]).abs().max()))
+    require(all(m > 0 for m in bn_moved), f"BatchNorm statistics did not move: {bn_moved}")
+    depth = metrics["depth"]
+    require(tuple(depth.shape) == (B_TRAIN, *HW_TRAIN, 1) and bool(torch.isfinite(depth).all()),
+            f"depth {tuple(depth.shape)} not finite or misshapen")
+    med = statistics.median(times)
+    print(f"[train] {opt.backbone}-{opt.num_layers} {opt.height}x{opt.width} batch "
+          f"{opt.batch_size} {opt.compute_dtype} --no_ssim, no augmentation: losses "
+          f"{[round(x, 6) for x in losses]}; launches per step {STEP_LAUNCHES}", flush=True)
+    print(f"[train] parameters moved by up to {moved}; encoder bn1 running mean/var moved "
+          f"by up to {bn_moved}", flush=True)
+    print(f"[train] median step {med * 1e3:.2f} ms over {TRAIN_STEPS} steps "
+          f"({[round(t * 1e3, 2) for t in times]} ms), {B_TRAIN / med:.2f} images/s, "
+          f"peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
+    if profile:
+        profile_steps(dev, step, batch, gen)
+    del models, adam, scheduler, step
+    compare_steps(dev, opt, batch)
+    return launches
+
+
+def compare_steps(dev, opt, batch):
+    """One kernel step against one plain step on the same seeded weights
+    and batch, dropout and tie-break noise off: the loss, and each module's
+    gradient by the relative norm of the difference."""
+    results = {}
+    for use_kernels in (True, False):
+        o = dataclasses.replace(opt, use_pallas=use_kernels)
+        models = build_models(o, dev, train=True)
+        for m in models.depth.modules():
+            if isinstance(m, (torch.nn.Dropout, torch.nn.MultiheadAttention)):
+                m.eval()
+        total, _ = pipeline.forward(models, batch, o)
+        total.backward()
+        grads = {name: torch.cat([p.grad.float().flatten() for p in mod.parameters()])
+                 for name, mod in models.modules().items()}
+        results[use_kernels] = (total.item(), grads)
+        del models, total
+    (loss_k, grads_k), (loss_p, grads_p) = results[True], results[False]
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    grad_err = {name: float((grads_k[name] - grads_p[name]).norm() / grads_p[name].norm())
+                for name in grads_p}
+    print(f"[train] kernel step vs plain step: loss {loss_k:.6f} vs {loss_p:.6f} (rel err "
+          f"{loss_err:.3e}, tol {STEP_LOSS_RTOL}); gradient rel-norm errors "
+          f"{ {k: float(f'{v:.3e}') for k, v in grad_err.items()} } (tol {STEP_GRAD_RTOL})",
+          flush=True)
+    require(loss_err <= STEP_LOSS_RTOL, "the kernel step's loss disagrees with the plain step's")
+    require(all(v <= STEP_GRAD_RTOL for v in grad_err.values()),
+            "the kernel step's gradients disagree with the plain step's")
+
+
+def profile_steps(dev, step, batch, gen):
+    """torch.profiler over two steps: device time by kernel and the
+    device's idle share of the window; the trace into runs/."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(batch, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device time of every kernel, copy and fill (user annotations such as
+    # the optimizer's span their kernels and are left out)
+    spans = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    by_name = {}
+    for e in spans:
+        total, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+    busy_us = sum(total for total, _ in by_name.values())
+    print(f"[profile] 2 steps: wall {wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms, "
+          f"idle share {1 - busy_us / 1e6 / wall:.3f}, {len(spans) // 2} device ops a step",
+          flush=True)
+    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"[profile] {total / 2e3:9.3f} ms/step  {count // 2:4d}x  {name[:90]}", flush=True)
+    out = ROOT / "runs"
+    out.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(out / "train_step_trace.json"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
+    profile = "--profile" in sys.argv[1:]
     dev = cuda_device()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -239,19 +594,22 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.1f} s -> "
           f"{_build.LIB_PATH.relative_to(ROOT)}", flush=True)
     for line in _build.LOG_PATH.read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    kernels = check_kernels(dev)
-    launches = drive_slice(dev)
+    check_kernels(dev)
+    serve_launches = drive_slice(dev)
+    kernels = check_training_kernels(dev)
+    train_launches = drive_training(dev, profile)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "sfmnext_tpu"))
     require(not imported, f"JAX or the JAX package was imported: {imported}")
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": "sfmnext_tpu_torch/csrc/sql_kernel.cu",
-         "replaces": replaces, "launches": launches[name], **kernels[name]}
-        for name, replaces in KERNELS.items()
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": train_launches[name],
+         "launches_serve": serve_launches.get(name, 0), **kernels[name]}
+        for name, (source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// Hopper (sm_90a) kernels for the SQL decoder's two fused ops, forward only.
+// Hopper (sm_90a) kernels for the SQL decoder's two fused ops and their
+// backward passes.
 //
 //   sql_summary_fwd replaces _fq_fwd_kernel (sfmnext_tpu/ops/pallas/sql_kernel.py,
 //     public entry flash_full_query):
@@ -43,6 +44,36 @@
 //    product. The [16,D] logits never leave registers either; the row max
 //    and the exp-weighted sums against the centers reduce across the four
 //    lanes that share a row.
+//
+// The backward passes (E <= 64), at the training slice's shape (B=8,
+// N=81,920, Q=128, E=32, D=128), counting each input read once and each
+// output written once, products at the 989 TFLOP/s bf16 dense peak:
+//
+//  * sql_summary_bwd replaces _fq_bwd_kernel (_fq_call_bwd, the VJP of
+//    flash_full_query): dS [B,N,E] bf16 and dQ [B,Q,E] from the cotangent
+//    g [B,Q,E] and the forward's m, z and delta = sum_e g * out. Five
+//    products of 2*B*N*Q*E (energy, dattn, dQ and the two halves of dS):
+//    26.8 GFLOP, 27 us; reads S and writes dS, 84 MB, 25 us; 84 M exps.
+//    Bounded by the products. Blocks are (chunk of N, b) as in the
+//    forward, each warp holding 16 queries; the energy and dattn tiles stay
+//    in registers. dS reduces over the queries, which the warps split, so
+//    bf16(p) and bf16(de) go through shared memory and the warps split the
+//    [64, E] dS tile instead.
+//  * sql_depth_bwd replaces _bins_bwd_kernel (_bins_call_bwd, the VJP of
+//    flash_bins_depth): dS, dQ, dW [Q,D], db [D] and dc [B,D]. Products:
+//    2*B*N*(3*Q*E + 3*Q*D) = 80.5 GFLOP, 81 us; 87 MB moved, 26 us.
+//    Bounded by the products. Each warp recomputes the energy and logits
+//    of its 16 pixels in registers (as the forward), forms dl and de there
+//    and writes dS; dW and dQ reduce over pixels, so bf16(e), bf16(dl) and
+//    bf16(de) of the block's 64 pixels go to shared memory and the warps
+//    split the [Q,D] and [Q,E] products, each owning its output tiles of a
+//    float32 accumulator in shared memory.
+//
+// Reductions across blocks (dQ, dW, db, dc) are written as per-block
+// partials and summed by a second kernel in a fixed order, not with
+// atomics, so a training step gives the same gradients every run. Like the
+// Pallas kernels, p, de and dl are rounded to bf16 before each product;
+// sums and softmax statistics stay float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +88,7 @@ constexpr int kMaxE = 128;
 constexpr int kTile = 64;          // pixels per summary tile
 constexpr int kDepthWarps = 4;     // warps per depth block
 constexpr int kDepthTilesPerWarp = 8;
+constexpr int kMaxEBwd = 64;     // the backward kernels take E <= 64
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -267,12 +299,13 @@ __global__ void __launch_bounds__(256) sql_summary_partial(
 }
 
 // summary, pass 2: log-sum-exp merge of the chunk partials, one thread per
-// (q, e) of one batch row.
+// (q, e) of one batch row; the threads of e == 0 also write the row's max m
+// and partition z, the residuals of the backward pass.
 __global__ void sql_summary_merge(const float* __restrict__ part_m,
                                   const float* __restrict__ part_z,
                                   const float* __restrict__ part_acc,
-                                  float* __restrict__ out, int n_chunks, int Q,
-                                  int E) {
+                                  float* __restrict__ out, float* __restrict__ m_out,
+                                  float* __restrict__ z_out, int n_chunks, int Q, int E) {
   const int b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Q * E) return;
@@ -289,6 +322,10 @@ __global__ void sql_summary_merge(const float* __restrict__ part_m,
     asum += w * pa[(size_t)c * Q * E];
   }
   out[(size_t)b * Q * E + i] = asum / zsum;
+  if (i - qi * E == 0) {
+    m_out[(size_t)b * Q + qi] = mx;
+    z_out[(size_t)b * Q + qi] = zsum;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -424,6 +461,589 @@ __global__ void __launch_bounds__(32 * kDepthWarps) sql_depth_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward passes (E <= kMaxEBwd).
+//
+// Fragment loads from shared memory. "k-contiguous" tiles hold the
+// product's reduction index in consecutive addresses and give 32-bit
+// loads; the transposed forms gather two 16-bit values a register.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pair16(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
+  return (uint32_t)*reinterpret_cast<const uint16_t*>(lo) |
+         ((uint32_t)*reinterpret_cast<const uint16_t*>(hi) << 16);
+}
+
+// A[r][k] = M[(r0 + r) * ld + k0 + k]
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* M, int ld,
+                                       int r0, int k0, int g, int t) {
+  const __nv_bfloat16* p = M + (r0 + g) * ld + k0 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+
+// A[r][k] = M[(k0 + k) * ld + r0 + r]
+__device__ __forceinline__ void frag_a_t(uint32_t (&a)[4], const __nv_bfloat16* M, int ld,
+                                         int r0, int k0, int g, int t) {
+  const __nv_bfloat16* p = M + (k0 + 2 * t) * ld + r0 + g;
+  a[0] = pair16(p, p + ld);
+  a[1] = pair16(p + 8, p + ld + 8);
+  a[2] = pair16(p + 8 * ld, p + 9 * ld);
+  a[3] = pair16(p + 8 * ld + 8, p + 9 * ld + 8);
+}
+
+// B[k][n] = M[(n0 + n) * ld + k0 + k]
+__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* M,
+                                       int ld, int n0, int k0, int g, int t) {
+  const __nv_bfloat16* p = M + (n0 + g) * ld + k0 + 2 * t;
+  b0 = ld32(p);
+  b1 = ld32(p + 8);
+}
+
+// B[k][n] = M[(k0 + k) * ld + n0 + n]
+__device__ __forceinline__ void frag_b_t(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* M,
+                                         int ld, int k0, int n0, int g, int t) {
+  const __nv_bfloat16* p = M + (k0 + 2 * t) * ld + n0 + g;
+  b0 = pair16(p, p + ld);
+  b1 = pair16(p + 8 * ld, p + 9 * ld);
+}
+
+// Two adjacent 16x8 accumulator tiles as one 16x16 A fragment (bf16), and
+// stored into a row-major bf16 tile at rows r0.., columns c0.. (16 wide).
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+__device__ __forceinline__ void store_a(__nv_bfloat16* M, int ld, int r0, int c0,
+                                        const uint32_t (&a)[4], int g, int t) {
+  uint32_t* p = reinterpret_cast<uint32_t*>(M + (r0 + g) * ld + c0 + 2 * t);
+  p[0] = a[0];
+  p[4] = a[2];
+  p += 4 * ld;  // eight rows down: 8 * ld bf16 = 4 * ld words
+  p[0] = a[1];
+  p[4] = a[3];
+}
+
+// Sum over the middle axis of partials [batch][parts][len] -> [batch][len],
+// in a fixed order (the second pass of every cross-block reduction).
+__global__ void sum_partials(const float* __restrict__ in, float* __restrict__ out, int parts,
+                             int len) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= len) return;
+  const float* p = in + (size_t)blockIdx.y * parts * len + i;
+  float s = 0.f;
+  for (int c = 0; c < parts; ++c) s += p[(size_t)c * len];
+  out[(size_t)blockIdx.y * len + i] = s;
+}
+
+cudaError_t launch_sum(const float* in, float* out, int batch, int parts, int len,
+                       cudaStream_t st) {
+  sum_partials<<<dim3((len + 255) / 256, batch), 256, 0, st>>>(in, out, parts, len);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// summary backward, pass 1: one block per (chunk of N, b); warp w owns
+// queries [16w, 16w+16), as in the forward. Per 64-pixel tile:
+//   e  = Q . S^T, dattn = bf16(g) . S^T            [16 q, 64 px] per warp
+//   p  = exp(e - m) / z, de = p * (dattn - delta)   (float32)
+//   dQ += bf16(de) . S                              (registers, per warp)
+//   dS  = bf16(de)^T . Q + bf16(p)^T . bf16(g)      (a reduction over q:
+//         p and de go through shared memory, warps split the [64, E] tile)
+// ---------------------------------------------------------------------------
+template <int KE>
+__global__ void __launch_bounds__(256) sql_summary_bwd_partial(
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ q,
+    const float* __restrict__ g, const float* __restrict__ m, const float* __restrict__ z,
+    const float* __restrict__ delta, __nv_bfloat16* __restrict__ ds,
+    float* __restrict__ part_dq, int N, int Q, int E, int chunk) {
+  constexpr int EP = 16 * KE;
+  constexpr int LD = EP + 8;
+  constexpr int LDT = kTile + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int QP = round_up(Q, 16);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [QP][LD]
+  __nv_bfloat16* gs = qs + QP * LD;                             // [QP][LD] bf16(g)
+  __nv_bfloat16* ss = gs + QP * LD;                             // [kTile][LD]
+  __nv_bfloat16* ps = ss + kTile * LD;                          // [QP][LDT] bf16(p)
+  __nv_bfloat16* des = ps + QP * LDT;                           // [QP][LDT] bf16(de)
+
+  const int b = blockIdx.y, c = blockIdx.x, n_chunks = gridDim.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x, nwarps = nthreads / 32;
+  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* sb = s + (size_t)b * N * E;
+
+  load_rows(qs, LD, q + (size_t)b * Q * E, 0, QP, Q, E, EP, tid, nthreads);
+  for (int i = tid; i < QP * EP; i += nthreads) {
+    const int r = i / EP, cc = i - r * EP;
+    const float v = (r < Q && cc < E) ? g[((size_t)b * Q + r) * E + cc] : 0.f;
+    gs[r * LD + cc] = __float2bfloat16(v);
+  }
+  __syncthreads();
+
+  const int q0 = warp * 16;
+  uint32_t qa[KE][4], ga[KE][4];
+#pragma unroll
+  for (int kk = 0; kk < KE; ++kk) {
+    frag_a(qa[kk], qs, LD, q0, kk * 16, gr, t);
+    frag_a(ga[kk], gs, LD, q0, kk * 16, gr, t);
+  }
+  float mrow[2], zrow[2], drow[2], valid[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + gr + 8 * i;
+    const bool ok = row < Q;
+    mrow[i] = ok ? m[(size_t)b * Q + row] : 0.f;
+    zrow[i] = ok ? z[(size_t)b * Q + row] : 1.f;
+    drow[i] = ok ? delta[(size_t)b * Q + row] : 0.f;
+    valid[i] = ok ? 1.f : 0.f;
+  }
+
+  float acc[2 * KE][4];
+#pragma unroll
+  for (int ne = 0; ne < 2 * KE; ++ne) acc[ne][0] = acc[ne][1] = acc[ne][2] = acc[ne][3] = 0.f;
+
+  const int n0 = c * chunk, n1 = min(n0 + chunk, N);
+  for (int t0 = n0; t0 < n1; t0 += kTile) {
+    __syncthreads();  // every warp is done with the previous tile
+    load_rows(ss, LD, sb, t0, kTile, N, E, EP, tid, nthreads);
+    __syncthreads();
+
+    float e[kTile / 8][4], da[kTile / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e[nt][j] = da[nt][j] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KE; ++kk) {
+        uint32_t b0, b1;
+        frag_b(b0, b1, ss, LD, nt * 8, kk * 16, gr, t);
+        mma16816(e[nt], qa[kk], b0, b1);
+        mma16816(da[nt], ga[kk], b0, b1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = j >> 1;
+        const bool in = t0 + nt * 8 + 2 * t + (j & 1) < N;
+        const float p = in ? valid[i] * (__expf(e[nt][j] - mrow[i]) / zrow[i]) : 0.f;
+        da[nt][j] = p * (da[nt][j] - drow[i]);
+        e[nt][j] = p;
+      }
+    }
+
+    // dQ += bf16(de) . S_tile, and p / de into shared memory for dS
+    uint32_t dea[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t pa[4];
+      acc_to_a(dea[kk], da[2 * kk], da[2 * kk + 1]);
+      acc_to_a(pa, e[2 * kk], e[2 * kk + 1]);
+      store_a(des, LDT, q0, kk * 16, dea[kk], gr, t);
+      store_a(ps, LDT, q0, kk * 16, pa, gr, t);
+    }
+#pragma unroll
+    for (int ne = 0; ne < 2 * KE; ++ne) {
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        uint32_t b0, b1;
+        frag_b_t(b0, b1, ss, LD, kk * 16, ne * 8, gr, t);
+        mma16816(acc[ne], dea[kk], b0, b1);
+      }
+    }
+    __syncthreads();
+
+    // dS [kTile, EP]: 16x8 output tiles split over the warps
+    for (int tile = warp; tile < (kTile / 16) * (EP / 8); tile += nwarps) {
+      const int rt = tile / (EP / 8), ct = tile - rt * (EP / 8);
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int kq = 0; kq < QP / 16; ++kq) {
+        uint32_t a[4], b0, b1;
+        frag_a_t(a, des, LDT, rt * 16, kq * 16, gr, t);
+        frag_b_t(b0, b1, qs, LD, kq * 16, ct * 8, gr, t);
+        mma16816(d, a, b0, b1);
+        frag_a_t(a, ps, LDT, rt * 16, kq * 16, gr, t);
+        frag_b_t(b0, b1, gs, LD, kq * 16, ct * 8, gr, t);
+        mma16816(d, a, b0, b1);
+      }
+      const int px = t0 + rt * 16 + gr, col = ct * 8 + 2 * t;
+      if (col < E) {  // E % 8 == 0, so col + 1 < E too
+        if (px < N)
+          *reinterpret_cast<__nv_bfloat162*>(ds + ((size_t)b * N + px) * E + col) =
+              __floats2bfloat162_rn(d[0], d[1]);
+        if (px + 8 < N)
+          *reinterpret_cast<__nv_bfloat162*>(ds + ((size_t)b * N + px + 8) * E + col) =
+              __floats2bfloat162_rn(d[2], d[3]);
+      }
+    }
+  }
+
+  const size_t base = ((size_t)b * n_chunks + c) * Q;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + gr + 8 * i;
+    if (row >= Q) continue;
+    float* out = part_dq + (base + row) * E;
+#pragma unroll
+    for (int ne = 0; ne < 2 * KE; ++ne) {
+      const int col = ne * 8 + 2 * t;
+      if (col < E) {
+        out[col] = acc[ne][2 * i];
+        out[col + 1] = acc[ne][2 * i + 1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// depth backward, pass 1: one block of kDepthWarps warps per (chunk of N,
+// b), 16 pixels a warp and 64 a block per step. Per warp (registers):
+//   e  = S . Q^T [16, Q] -> bf16 A fragments, also into shared memory
+//   l  = bf16(e) . W + bias, pn = softmax_D(l)
+//   dl = pn * (g c - sum_d pn g c);   dc += pn g,  db += dl (per-warp rows
+//        of shared memory, summed across the 16 pixels with shuffles)
+//   de = bf16(dl) . W^T [16, Q];      dS = bf16(de) . Q  -> global
+// then per block (reductions over the 64 pixels, split over the warps,
+// accumulated in float32 shared memory that each warp owns a part of):
+//   dW += bf16(e)^T . bf16(dl),       dQ += bf16(de)^T . S
+// ---------------------------------------------------------------------------
+constexpr int kBwdTile = 16 * kDepthWarps;  // pixels per block step
+
+template <int KE>
+__global__ void __launch_bounds__(32 * kDepthWarps) sql_depth_bwd_partial(
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+    const float* __restrict__ centers, const float* __restrict__ gd,
+    __nv_bfloat16* __restrict__ ds, float* __restrict__ part_dq, float* __restrict__ part_dw,
+    float* __restrict__ part_db, float* __restrict__ part_dc, int N, int Q, int E, int D,
+    int chunk) {
+  constexpr int EP = 16 * KE;
+  constexpr int LD = EP + 8;
+  const int QP = round_up(Q, 16), DP = round_up(D, 8), DP16 = round_up(D, 16);
+  const int QK = QP / 16, DT = DP / 8, DK = DP16 / 16;
+  const int LDQ = QP + 8, LDD = DP16 + 8, LDA = DP + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* bias_s = reinterpret_cast<float*>(smem);    // [kMaxD], -inf past D
+  float* cen_s = bias_s + kMaxD;                      // [kMaxD], 0 past D
+  float* dcw = cen_s + kMaxD;                         // [kDepthWarps][kMaxD]
+  float* dbw = dcw + kDepthWarps * kMaxD;             // [kDepthWarps][kMaxD]
+  float* dw_acc = dbw + kDepthWarps * kMaxD;          // [QP][LDA]
+  float* dq_acc = dw_acc + QP * LDA;                  // [QP][LD]
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(dq_acc + QP * LD);  // [QP][LDD]
+  __nv_bfloat16* qs = ws + QP * LDD;                  // [QP][LD]
+  __nv_bfloat16* ss = qs + QP * LD;                   // [kBwdTile][LD]
+  __nv_bfloat16* es = ss + kBwdTile * LD;             // [kBwdTile][LDQ] bf16(e)
+  __nv_bfloat16* des = es + kBwdTile * LDQ;           // [kBwdTile][LDQ] bf16(de)
+  __nv_bfloat16* dls = des + kBwdTile * LDQ;          // [kBwdTile][LDD] bf16(dl)
+
+  const int b = blockIdx.y, c = blockIdx.x, n_chunks = gridDim.x;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, t = lane & 3;
+
+  for (int d = tid; d < kMaxD; d += nthreads) {
+    bias_s[d] = d < D ? bias[d] : -INFINITY;
+    cen_s[d] = d < D ? centers[(size_t)b * D + d] : 0.f;
+  }
+  for (int i = tid; i < kDepthWarps * kMaxD; i += nthreads) dcw[i] = dbw[i] = 0.f;
+  for (int i = tid; i < QP * LDA; i += nthreads) dw_acc[i] = 0.f;
+  for (int i = tid; i < QP * LD; i += nthreads) dq_acc[i] = 0.f;
+  for (int i = tid; i < QP * DP16; i += nthreads) {
+    const int qi = i / DP16, d = i - qi * DP16;
+    ws[qi * LDD + d] = (qi < Q && d < D) ? w[(size_t)qi * D + d] : __float2bfloat16(0.f);
+  }
+  load_rows(qs, LD, q + (size_t)b * Q * E, 0, QP, Q, E, EP, tid, nthreads);
+  const __nv_bfloat16* sb = s + (size_t)b * N * E;
+  const float* gb = gd + (size_t)b * N;
+  const int pr = warp * 16;  // this warp's rows of the block's pixel tile
+
+  const int n0 = c * chunk, n1 = min(n0 + chunk, N);
+  for (int t0 = n0; t0 < n1; t0 += kBwdTile) {
+    __syncthreads();  // the previous step's block products are done
+    load_rows(ss, LD, sb, t0, kBwdTile, N, E, EP, tid, nthreads);
+    __syncthreads();
+
+    // energy [16, QP] as bf16 A fragments (and into es for dW)
+    uint32_t sa[KE][4];
+#pragma unroll
+    for (int kk = 0; kk < KE; ++kk) frag_a(sa[kk], ss, LD, pr, kk * 16, gr, t);
+    uint32_t ea[kMaxQ / 16][4];
+#pragma unroll
+    for (int kq = 0; kq < kMaxQ / 16; ++kq) {
+      if (kq < QK) {
+        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < KE; ++kk) {
+          uint32_t b0, b1;
+          frag_b(b0, b1, qs, LD, kq * 16, kk * 16, gr, t);
+          mma16816(c0, sa[kk], b0, b1);
+          frag_b(b0, b1, qs, LD, kq * 16 + 8, kk * 16, gr, t);
+          mma16816(c1, sa[kk], b0, b1);
+        }
+        acc_to_a(ea[kq], c0, c1);
+        store_a(es, LDQ, pr, kq * 16, ea[kq], gr, t);
+      }
+    }
+
+    // logits [16, DP] = bf16(e) . W + bias, softmax over D
+    float lg[kMaxD / 8][4];
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int dt = 0; dt < kMaxD / 8; ++dt) {
+      if (dt < DT) {
+        lg[dt][0] = lg[dt][1] = lg[dt][2] = lg[dt][3] = 0.f;
+#pragma unroll
+        for (int kq = 0; kq < kMaxQ / 16; ++kq) {
+          if (kq < QK) {
+            uint32_t b0, b1;
+            frag_b_t(b0, b1, ws, LDD, kq * 16, dt * 8, gr, t);
+            mma16816(lg[dt], ea[kq], b0, b1);
+          }
+        }
+        const int col = dt * 8 + 2 * t;
+        lg[dt][0] += bias_s[col];
+        lg[dt][1] += bias_s[col + 1];
+        lg[dt][2] += bias_s[col];
+        lg[dt][3] += bias_s[col + 1];
+        mx0 = fmaxf(mx0, fmaxf(lg[dt][0], lg[dt][1]));
+        mx1 = fmaxf(mx1, fmaxf(lg[dt][2], lg[dt][3]));
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    float den0 = 0.f, den1 = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < kMaxD / 8; ++dt) {
+      if (dt < DT) {
+        lg[dt][0] = __expf(lg[dt][0] - mx0);
+        lg[dt][1] = __expf(lg[dt][1] - mx0);
+        lg[dt][2] = __expf(lg[dt][2] - mx1);
+        lg[dt][3] = __expf(lg[dt][3] - mx1);
+        den0 += lg[dt][0] + lg[dt][1];
+        den1 += lg[dt][2] + lg[dt][3];
+      }
+    }
+    den0 = quad_sum(den0);
+    den1 = quad_sum(den1);
+    const int p0 = t0 + pr + gr;
+    const float g0 = p0 < N ? gb[p0] : 0.f, g1 = p0 + 8 < N ? gb[p0 + 8] : 0.f;
+
+    // pn (in lg), then dot = sum_d pn * g * c per pixel
+    float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < kMaxD / 8; ++dt) {
+      if (dt < DT) {
+        const int col = dt * 8 + 2 * t;
+        lg[dt][0] /= den0;
+        lg[dt][1] /= den0;
+        lg[dt][2] /= den1;
+        lg[dt][3] /= den1;
+        dot0 += lg[dt][0] * (g0 * cen_s[col]) + lg[dt][1] * (g0 * cen_s[col + 1]);
+        dot1 += lg[dt][2] * (g1 * cen_s[col]) + lg[dt][3] * (g1 * cen_s[col + 1]);
+      }
+    }
+    dot0 = quad_sum(dot0);
+    dot1 = quad_sum(dot1);
+
+    // dl (in lg); dc and db summed over the warp's 16 pixels
+#pragma unroll
+    for (int dt = 0; dt < kMaxD / 8; ++dt) {
+      if (dt < DT) {
+        const int col = dt * 8 + 2 * t;
+        const float c0 = cen_s[col], c1 = cen_s[col + 1];
+        float dc0 = lg[dt][0] * g0 + lg[dt][2] * g1;
+        float dc1 = lg[dt][1] * g0 + lg[dt][3] * g1;
+        lg[dt][0] *= g0 * c0 - dot0;
+        lg[dt][1] *= g0 * c1 - dot0;
+        lg[dt][2] *= g1 * c0 - dot1;
+        lg[dt][3] *= g1 * c1 - dot1;
+        float db0 = lg[dt][0] + lg[dt][2], db1 = lg[dt][1] + lg[dt][3];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          dc0 += __shfl_xor_sync(0xffffffffu, dc0, off);
+          dc1 += __shfl_xor_sync(0xffffffffu, dc1, off);
+          db0 += __shfl_xor_sync(0xffffffffu, db0, off);
+          db1 += __shfl_xor_sync(0xffffffffu, db1, off);
+        }
+        if (gr == 0) {
+          dcw[warp * kMaxD + col] += dc0;
+          dcw[warp * kMaxD + col + 1] += dc1;
+          dbw[warp * kMaxD + col] += db0;
+          dbw[warp * kMaxD + col + 1] += db1;
+        }
+      }
+    }
+
+    // bf16(dl) as A fragments over D (zero past DP), and into dls for dW
+    uint32_t dla[kMaxD / 16][4];
+#pragma unroll
+    for (int kd = 0; kd < kMaxD / 16; ++kd) {
+      if (kd < DK) {
+        const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+        if (2 * kd + 1 < DT)
+          acc_to_a(dla[kd], lg[2 * kd], lg[2 * kd + 1]);
+        else
+          acc_to_a(dla[kd], lg[2 * kd], zero);
+        store_a(dls, LDD, pr, kd * 16, dla[kd], gr, t);
+      }
+    }
+
+    // de [16, QP] = bf16(dl) . W^T, as bf16 A fragments (and into des)
+    uint32_t dea[kMaxQ / 16][4];
+#pragma unroll
+    for (int kq = 0; kq < kMaxQ / 16; ++kq) {
+      if (kq < QK) {
+        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kd = 0; kd < kMaxD / 16; ++kd) {
+          if (kd < DK) {
+            uint32_t b0, b1;
+            frag_b(b0, b1, ws, LDD, kq * 16, kd * 16, gr, t);
+            mma16816(c0, dla[kd], b0, b1);
+            frag_b(b0, b1, ws, LDD, kq * 16 + 8, kd * 16, gr, t);
+            mma16816(c1, dla[kd], b0, b1);
+          }
+        }
+        acc_to_a(dea[kq], c0, c1);
+        store_a(des, LDQ, pr, kq * 16, dea[kq], gr, t);
+      }
+    }
+
+    // dS [16, EP] = bf16(de) . Q
+#pragma unroll
+    for (int ne = 0; ne < 2 * KE; ++ne) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kq = 0; kq < kMaxQ / 16; ++kq) {
+        if (kq < QK) {
+          uint32_t b0, b1;
+          frag_b_t(b0, b1, qs, LD, kq * 16, ne * 8, gr, t);
+          mma16816(d, dea[kq], b0, b1);
+        }
+      }
+      const int col = ne * 8 + 2 * t;
+      if (col < E) {
+        if (p0 < N)
+          *reinterpret_cast<__nv_bfloat162*>(ds + ((size_t)b * N + p0) * E + col) =
+              __floats2bfloat162_rn(d[0], d[1]);
+        if (p0 + 8 < N)
+          *reinterpret_cast<__nv_bfloat162*>(ds + ((size_t)b * N + p0 + 8) * E + col) =
+              __floats2bfloat162_rn(d[2], d[3]);
+      }
+    }
+    __syncthreads();
+
+    // block products over the step's kBwdTile pixels; each 16x8 output
+    // tile belongs to one warp, so the float32 sums need no atomics
+    for (int tile = warp; tile < QK * DT; tile += kDepthWarps) {
+      const int r0 = (tile / DT) * 16, c0 = (tile % DT) * 8;
+      float* acc = dw_acc + (r0 + gr) * LDA + c0 + 2 * t;
+      float d[4] = {acc[0], acc[1], acc[8 * LDA], acc[8 * LDA + 1]};
+#pragma unroll
+      for (int kp = 0; kp < kBwdTile / 16; ++kp) {
+        uint32_t a[4], b0, b1;
+        frag_a_t(a, es, LDQ, r0, kp * 16, gr, t);
+        frag_b_t(b0, b1, dls, LDD, kp * 16, c0, gr, t);
+        mma16816(d, a, b0, b1);
+      }
+      acc[0] = d[0];
+      acc[1] = d[1];
+      acc[8 * LDA] = d[2];
+      acc[8 * LDA + 1] = d[3];
+    }
+    for (int tile = warp; tile < QK * (EP / 8); tile += kDepthWarps) {
+      const int r0 = (tile / (EP / 8)) * 16, c0 = (tile % (EP / 8)) * 8;
+      float* acc = dq_acc + (r0 + gr) * LD + c0 + 2 * t;
+      float d[4] = {acc[0], acc[1], acc[8 * LD], acc[8 * LD + 1]};
+#pragma unroll
+      for (int kp = 0; kp < kBwdTile / 16; ++kp) {
+        uint32_t a[4], b0, b1;
+        frag_a_t(a, des, LDQ, r0, kp * 16, gr, t);
+        frag_b_t(b0, b1, ss, LD, kp * 16, c0, gr, t);
+        mma16816(d, a, b0, b1);
+      }
+      acc[0] = d[0];
+      acc[1] = d[1];
+      acc[8 * LD] = d[2];
+      acc[8 * LD + 1] = d[3];
+    }
+  }
+  __syncthreads();
+
+  const size_t blk = (size_t)b * n_chunks + c;
+  for (int i = tid; i < Q * D; i += nthreads) {
+    const int qi = i / D, d = i - qi * D;
+    part_dw[blk * Q * D + i] = dw_acc[qi * LDA + d];
+  }
+  for (int i = tid; i < Q * E; i += nthreads) {
+    const int qi = i / E, e = i - qi * E;
+    part_dq[blk * Q * E + i] = dq_acc[qi * LD + e];
+  }
+  for (int d = tid; d < D; d += nthreads) {
+    float sc = 0.f, sb2 = 0.f;
+    for (int wi = 0; wi < kDepthWarps; ++wi) {
+      sc += dcw[wi * kMaxD + d];
+      sb2 += dbw[wi * kMaxD + d];
+    }
+    part_dc[blk * D + d] = sc;
+    part_db[blk * D + d] = sb2;
+  }
+}
+
+size_t summary_bwd_smem(int Q, int E) {
+  const int QP = round_up(Q, 16), EP = round_up(E, 16);
+  return ((size_t)2 * QP * (EP + 8) + (size_t)kTile * (EP + 8) +
+          (size_t)2 * QP * (kTile + 8)) * sizeof(__nv_bfloat16);
+}
+
+size_t depth_bwd_smem(int Q, int E, int D) {
+  const int QP = round_up(Q, 16), EP = round_up(E, 16), DP = round_up(D, 8),
+            DP16 = round_up(D, 16);
+  const size_t f32 = (size_t)2 * kMaxD + (size_t)2 * kDepthWarps * kMaxD +
+                     (size_t)QP * (DP + 8) + (size_t)QP * (EP + 8);
+  const size_t b16 = (size_t)QP * (DP16 + 8) + (size_t)QP * (EP + 8) +
+                     (size_t)kBwdTile * (EP + 8) + (size_t)2 * kBwdTile * (QP + 8) +
+                     (size_t)kBwdTile * (DP16 + 8);
+  return f32 * sizeof(float) + b16 * sizeof(__nv_bfloat16);
+}
+
+template <int KE>
+cudaError_t launch_summary_bwd(dim3 grid, size_t smem, cudaStream_t st, const __nv_bfloat16* s,
+                               const __nv_bfloat16* q, const float* g, const float* m,
+                               const float* z, const float* delta, __nv_bfloat16* ds,
+                               float* part_dq, int N, int Q, int E, int chunk) {
+  cudaError_t err = cudaFuncSetAttribute(sql_summary_bwd_partial<KE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  sql_summary_bwd_partial<KE><<<grid, 32 * (round_up(Q, 16) / 16), smem, st>>>(
+      s, q, g, m, z, delta, ds, part_dq, N, Q, E, chunk);
+  return cudaGetLastError();
+}
+
+template <int KE>
+cudaError_t launch_depth_bwd(dim3 grid, size_t smem, cudaStream_t st, const __nv_bfloat16* s,
+                             const __nv_bfloat16* q, const __nv_bfloat16* w, const float* bias,
+                             const float* centers, const float* g, __nv_bfloat16* ds,
+                             float* part_dq, float* part_dw, float* part_db, float* part_dc,
+                             int N, int Q, int E, int D, int chunk) {
+  cudaError_t err = cudaFuncSetAttribute(sql_depth_bwd_partial<KE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  sql_depth_bwd_partial<KE><<<grid, 32 * kDepthWarps, smem, st>>>(
+      s, q, w, bias, centers, g, ds, part_dq, part_dw, part_db, part_dc, N, Q, E, D, chunk);
+  return cudaGetLastError();
+}
+
 bool shapes_ok(int B, int N, int Q, int E) {
   return B > 0 && N > 0 && Q > 0 && Q <= kMaxQ && E > 0 && E <= kMaxE && E % 8 == 0;
 }
@@ -459,8 +1079,10 @@ extern "C" {
 
 // Pixels per summary block: the wrapper allocates part_m/part_z [B,C,Q] and
 // part_acc [B,C,Q,E] float32 with C = ceil(N / chunk); chunk % 64 == 0.
+// out [B,Q,E], m_out and z_out [B,Q] float32.
 int sql_summary_fwd(const void* s, const void* q, void* part_m, void* part_z, void* part_acc,
-                    void* out, int B, int N, int Q, int E, int chunk, void* stream) {
+                    void* out, void* m_out, void* z_out, int B, int N, int Q, int E, int chunk,
+                    void* stream) {
   if (!shapes_ok(B, N, Q, E) || chunk <= 0 || chunk % kTile != 0) return (int)cudaErrorInvalidValue;
   const int n_chunks = (N + chunk - 1) / chunk;
   const int QP = round_up(Q, 16), EP = round_up(E, 16);
@@ -489,8 +1111,9 @@ int sql_summary_fwd(const void* s, const void* q, void* part_m, void* part_z, vo
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  sql_summary_merge<<<dim3((Q * E + 255) / 256, B), 256, 0, st>>>(pm, pz, pa, static_cast<float*>(out),
-                                                                   n_chunks, Q, E);
+  sql_summary_merge<<<dim3((Q * E + 255) / 256, B), 256, 0, st>>>(
+      pm, pz, pa, static_cast<float*>(out), static_cast<float*>(m_out),
+      static_cast<float*>(z_out), n_chunks, Q, E);
   return (int)cudaGetLastError();
 }
 
@@ -526,6 +1149,90 @@ int sql_depth_fwd(const void* s, const void* q, const void* w, const void* bias,
 #undef SQL_DEPTH_CASE
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Backward of sql_summary_fwd for the cotangent g [B,Q,E] float32 of its
+// output, with the forward's m, z [B,Q] and delta = sum_e g * out [B,Q]:
+// ds [B,N,E] bf16 and dq [B,Q,E] float32. part_dq [B,C,Q,E] float32 with
+// C = ceil(N / chunk), chunk % 64 == 0. E <= 64.
+int sql_summary_bwd(const void* s, const void* q, const void* g, const void* m, const void* z,
+                    const void* delta, void* ds, void* part_dq, void* dq, int B, int N, int Q,
+                    int E, int chunk, void* stream) {
+  if (!shapes_ok(B, N, Q, E) || E > kMaxEBwd || chunk <= 0 || chunk % kTile != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = (N + chunk - 1) / chunk;
+  const size_t smem = summary_bwd_smem(Q, E);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_chunks, B);
+  const auto* sp = static_cast<const __nv_bfloat16*>(s);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* gp = static_cast<const float*>(g);
+  const auto* mp = static_cast<const float*>(m);
+  const auto* zp = static_cast<const float*>(z);
+  const auto* dp = static_cast<const float*>(delta);
+  auto* dsp = static_cast<__nv_bfloat16*>(ds);
+  auto* pq = static_cast<float*>(part_dq);
+  cudaError_t err;
+  switch (round_up(E, 16) / 16) {
+#define SQL_SUMMARY_BWD_CASE(KE) \
+  case KE: err = launch_summary_bwd<KE>(grid, smem, st, sp, qp, gp, mp, zp, dp, dsp, pq, N, Q, E, chunk); break;
+    SQL_SUMMARY_BWD_CASE(1)
+    SQL_SUMMARY_BWD_CASE(2)
+    SQL_SUMMARY_BWD_CASE(3)
+    SQL_SUMMARY_BWD_CASE(4)
+#undef SQL_SUMMARY_BWD_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_sum(pq, static_cast<float*>(dq), B, n_chunks, Q * E, st);
+}
+
+// Backward of sql_depth_fwd for the cotangent g [B,N] float32 of its
+// output: ds [B,N,E] bf16, dq [B,Q,E], dw [Q,D], db [D] and dc [B,D]
+// float32. Partials, with C = ceil(N / chunk) and chunk % 64 == 0:
+// part_dq [B,C,Q,E], part_dw [B,C,Q,D], part_db and part_dc [B,C,D].
+// E <= 64.
+int sql_depth_bwd(const void* s, const void* q, const void* w, const void* bias,
+                  const void* centers, const void* g, void* ds, void* part_dq, void* part_dw,
+                  void* part_db, void* part_dc, void* dq, void* dw, void* db, void* dc, int B,
+                  int N, int Q, int E, int D, int chunk, void* stream) {
+  if (!shapes_ok(B, N, Q, E) || E > kMaxEBwd || D <= 0 || D > kMaxD || chunk <= 0 ||
+      chunk % kBwdTile != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = (N + chunk - 1) / chunk;
+  const size_t smem = depth_bwd_smem(Q, E, D);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_chunks, B);
+  const auto* sp = static_cast<const __nv_bfloat16*>(s);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* wp = static_cast<const __nv_bfloat16*>(w);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* cp = static_cast<const float*>(centers);
+  const auto* gp = static_cast<const float*>(g);
+  auto* dsp = static_cast<__nv_bfloat16*>(ds);
+  auto* pq = static_cast<float*>(part_dq);
+  auto* pw = static_cast<float*>(part_dw);
+  auto* pb = static_cast<float*>(part_db);
+  auto* pc = static_cast<float*>(part_dc);
+  cudaError_t err;
+  switch (round_up(E, 16) / 16) {
+#define SQL_DEPTH_BWD_CASE(KE) \
+  case KE: err = launch_depth_bwd<KE>(grid, smem, st, sp, qp, wp, bp, cp, gp, dsp, pq, pw, pb, pc, N, Q, E, D, chunk); break;
+    SQL_DEPTH_BWD_CASE(1)
+    SQL_DEPTH_BWD_CASE(2)
+    SQL_DEPTH_BWD_CASE(3)
+    SQL_DEPTH_BWD_CASE(4)
+#undef SQL_DEPTH_BWD_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  if ((err = launch_sum(pq, static_cast<float*>(dq), B, n_chunks, Q * E, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_sum(pc, static_cast<float*>(dc), B, n_chunks, D, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = launch_sum(pw, static_cast<float*>(dw), 1, B * n_chunks, Q * D, st)) != cudaSuccess)
+    return (int)err;
+  return (int)launch_sum(pb, static_cast<float*>(db), 1, B * n_chunks, D, st);
 }
 
 const char* sql_kernel_error_string(int err) {

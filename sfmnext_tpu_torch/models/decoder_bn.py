@@ -14,7 +14,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from sfmnext_tpu_torch.models.common import torch_default_init_
+from sfmnext_tpu_torch.models.common import BatchNorm2d, torch_default_init_
 from sfmnext_tpu_torch.models.resnet import ResNetEncoder
 from sfmnext_tpu_torch.ops.image import resize_bilinear
 
@@ -25,9 +25,9 @@ class UpSampleBN(nn.Module):
     def __init__(self, cin: int, features: int):
         super().__init__()
         self._net = nn.Sequential(
-            nn.Conv2d(cin, features, 3, 1, 1), nn.BatchNorm2d(features),
+            nn.Conv2d(cin, features, 3, 1, 1), BatchNorm2d(features),
             nn.LeakyReLU(0.01),
-            nn.Conv2d(features, features, 3, 1, 1), nn.BatchNorm2d(features),
+            nn.Conv2d(features, features, 3, 1, 1), BatchNorm2d(features),
             nn.LeakyReLU(0.01),
         )
 

@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sfmnext_tpu_torch.models.common import BatchNorm2d
+
 RESNET_SPECS = {
     18: ("basic", (2, 2, 2, 2)),
     34: ("basic", (3, 4, 6, 3)),
@@ -33,7 +35,7 @@ def _conv(cin, cout, k, stride=1):
 def _downsample(cin, cout, stride):
     if stride == 1 and cin == cout:
         return None
-    return nn.Sequential(_conv(cin, cout, 1, stride), nn.BatchNorm2d(cout))
+    return nn.Sequential(_conv(cin, cout, 1, stride), BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
@@ -42,9 +44,9 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1):
         super().__init__()
         self.conv1 = _conv(cin, features, 3, stride)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = _conv(features, features, 3)
-        self.bn2 = nn.BatchNorm2d(features)
+        self.bn2 = BatchNorm2d(features)
         self.downsample = _downsample(cin, features, stride)
 
     def forward(self, x):
@@ -61,11 +63,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         out = features * 4
         self.conv1 = _conv(cin, features, 1)
-        self.bn1 = nn.BatchNorm2d(features)
+        self.bn1 = BatchNorm2d(features)
         self.conv2 = _conv(features, features, 3, stride)
-        self.bn2 = nn.BatchNorm2d(features)
+        self.bn2 = BatchNorm2d(features)
         self.conv3 = _conv(features, out, 1)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.bn3 = BatchNorm2d(out)
         self.downsample = _downsample(cin, out, stride)
 
     def forward(self, x):
@@ -84,7 +86,7 @@ class _Trunk(nn.Module):
         kind, stages = RESNET_SPECS[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
         self.conv1 = _conv(3, 64, 7, 2)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         cin = 64
         for i, (width, n) in enumerate(zip((64, 128, 256, 512), stages)):
             blocks = []

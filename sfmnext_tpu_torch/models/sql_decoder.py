@@ -12,11 +12,15 @@
   7. cumsum -> bin edges -> centers in [min_val, max_val] (float32)
   8. depth = sum(softmax(1x1 conv(energy)) * centers)
 
-Steps 5 and 8 run as the Hopper kernels of ``ops/sql_kernel.py`` when the
-model computes in bf16 and the energies are not asked for (the JAX rule at
-``sql_decoder.py:224-229`` without its TPU tile gate); otherwise through
-the plain ``ops/sql_attention.py``. The output ``disp0`` holds *depth*, as
-in the reference.
+Steps 5 and 8 run as the Hopper kernels of ``ops/sql_kernel.py`` (forward
+and backward) when ``use_kernels`` is set, the model computes in bf16 and
+the energies are not asked for (the JAX rule at ``sql_decoder.py:224-229``
+without its TPU tile gate); otherwise through the plain
+``ops/sql_attention.py``. Steps 5-8 run outside autocast: the SQL ops fix
+their own operand dtypes and the bins head stays float32. In training the
+parameters stay float32 and the step runs the model under bf16 autocast
+(``training/pipeline.py``); the transformer's dropout (p 0.1) is live in
+train mode. The output ``disp0`` holds *depth*, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,13 +43,14 @@ class SQLDecoder(nn.Module):
     def __init__(self, embedding_dim: int = 32, patch_size: int = 20,
                  num_heads: int = 4, query_nums: int = 128, dim_out: int = 128,
                  min_val: float = 0.001, max_val: float = 80.0,
-                 ffn_dim: int = 1024, dtype=torch.float32):
+                 ffn_dim: int = 1024, dtype=torch.float32, use_kernels: bool = True):
         super().__init__()
         e, q = embedding_dim, query_nums
         self.embedding_dim, self.patch_size = e, patch_size
         self.query_nums, self.dim_out = q, dim_out
         self.min_val, self.max_val = min_val, max_val
         self.dtype = dtype
+        self.use_kernels = use_kernels
 
         self.embedding_convPxP = nn.Conv2d(e, e, patch_size, patch_size)
         self.positional_encodings = nn.Parameter(torch.empty(MAX_TOKENS, e))
@@ -102,36 +107,40 @@ class SQLDecoder(nn.Module):
         emb = self.embedding_convPxP(x0).flatten(2).transpose(1, 2)  # [B,T,E]
         emb = emb + self.positional_encodings[:n_tokens].to(emb.dtype)
         tokens = self.transformer_encoder(emb)
-        queries = tokens[:, : self.query_nums].contiguous()  # [B,Q,E]
+        queries = tokens[:, : self.query_nums]  # [B,Q,E]
 
         # [B,H,W,E]: the kernels' pixel-major layout, one permute for both
-        feats = self.conv3x3(x0).permute(0, 2, 3, 1).contiguous()
-        fused = self.dtype == torch.bfloat16 and not return_energy
-        if fused:
-            energy = None
-            summary = sql_kernel.sql_summary(feats, queries)
-        else:
-            energy, summary = sql_attention.sql_full_query(feats, queries)
+        feats = self.conv3x3(x0).permute(0, 2, 3, 1)
+        with torch.autocast(x0.device.type, enabled=False):
+            feats = feats.to(self.dtype).contiguous()
+            queries = queries.to(self.dtype).contiguous()
+            fused = (self.use_kernels and self.dtype == torch.bfloat16
+                     and not return_energy)
+            if fused:
+                energy = None
+                summary = sql_kernel.sql_summary(feats, queries)
+            else:
+                energy, summary = sql_attention.sql_full_query(feats, queries)
 
-        z = self.bins_regressor(summary.float().reshape(b, -1))
-        z = F.relu(z) + 0.1
-        z = z / z.sum(dim=1, keepdim=True)
-        widths = (self.max_val - self.min_val) * z
-        widths = F.pad(widths, (1, 0), value=self.min_val)
-        edges = torch.cumsum(widths, dim=1)
-        centers = 0.5 * (edges[:, :-1] + edges[:, 1:])  # [B,D]
+            z = self.bins_regressor(summary.float().reshape(b, -1))
+            z = F.relu(z) + 0.1
+            z = z / z.sum(dim=1, keepdim=True)
+            widths = (self.max_val - self.min_val) * z
+            widths = F.pad(widths, (1, 0), value=self.min_val)
+            edges = torch.cumsum(widths, dim=1)
+            centers = 0.5 * (edges[:, :-1] + edges[:, 1:])  # [B,D]
 
-        prob = self.convert_to_prob[0]
-        weight = prob.weight[:, :, 0, 0].t()  # [Q,D]
-        if fused:
-            depth = sql_kernel.sql_depth(
-                feats, queries, weight.to(torch.bfloat16).contiguous(),
-                prob.bias, centers,
-            )
-        else:
-            depth = sql_attention.sql_bins_to_depth(
-                energy, weight, prob.bias, centers, compute_dtype=self.dtype
-            )
+            prob = self.convert_to_prob[0]
+            weight = prob.weight[:, :, 0, 0].t()  # [Q,D]
+            if fused:
+                depth = sql_kernel.sql_depth(
+                    feats, queries, weight.to(torch.bfloat16).contiguous(),
+                    prob.bias.float(), centers,
+                )
+            else:
+                depth = sql_attention.sql_bins_to_depth(
+                    energy, weight, prob.bias, centers, compute_dtype=self.dtype
+                )
 
         out = {"disp0": depth.float().permute(0, 3, 1, 2), "bin_centers": centers}
         if return_energy:

@@ -1,10 +1,12 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's CUDA kernels at first use and load them with ctypes,
+and the checks every kernel wrapper shares.
 
-``nvcc`` compiles every ``csrc/*.cu`` of this package into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds), ``_build/libsql_kernels.so`` beside the sources. The library is
-rebuilt when the hash of the sources and flags changes. Only the sources
-in the package are used.
+``nvcc`` compiles each ``csrc/*.cu`` of this package into an object, all
+sources at once in parallel, and links them into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds),
+``_build/libsql_kernels.so`` beside the sources. The library is rebuilt
+when the hash of the sources and flags changes. Only the sources in the
+package are used.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -24,7 +28,7 @@ LIB_PATH = BUILD_DIR / "libsql_kernels.so"
 LOG_PATH = BUILD_DIR / "build.log"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -55,12 +59,32 @@ def build() -> Path:
     if LIB_PATH.exists() and stamp.exists() and stamp.read_text() == digest:
         return LIB_PATH
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = BUILD_DIR / f"libsql_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    LOG_PATH.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc, pid = _nvcc(), os.getpid()
+    objs, procs, log = [], [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{pid}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+    tmp = BUILD_DIR / f"libsql_kernels.{pid}.so"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
+    LOG_PATH.write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     stamp.write_text(digest)
     return LIB_PATH
@@ -71,10 +95,53 @@ def library() -> ctypes.CDLL:
     """The built kernels, with every C signature declared."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sql_summary_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.sql_summary_fwd.restype = i32
-    lib.sql_depth_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.sql_depth_fwd.restype = i32
+    signatures = {
+        # pointers, then ints, then the stream
+        "sql_summary_fwd": (8, 5),
+        "sql_depth_fwd": (6, 5),
+        "sql_summary_bwd": (9, 5),
+        "sql_depth_bwd": (15, 6),
+        "warp_border_fwd": (4, 6),
+        "warp_border_bwd": (6, 6),
+    }
+    for name, (n_ptr, n_int) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
+        fn.restype = i32
     lib.sql_kernel_error_string.argtypes = [i32]
     lib.sql_kernel_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, shape) -> None:
+    """dtype, shape, contiguity and 16-byte alignment, as the kernels take them."""
+    require(t.dtype == dtype, f"{name}: dtype {t.dtype}, expected {dtype}")
+    require(tuple(t.shape) == tuple(shape),
+            f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    require(t.is_contiguous(), f"{name} must be contiguous")
+    require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+
+
+def kernel_device(*tensors) -> torch.device:
+    """The tensors' common device; the CPU or a CUDA card, nothing else."""
+    dev = tensors[0].device
+    require(all(t.device == dev for t in tensors), "inputs lie on different devices")
+    require(dev.type in ("cpu", "cuda"), f"no kernel for device {dev}")
+    return dev
+
+
+def stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev``, as the kernels take it."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def check_error(lib, err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = lib.sql_kernel_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")

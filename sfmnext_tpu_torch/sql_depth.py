@@ -13,7 +13,7 @@ from sfmnext_tpu_torch.utils.jax_weights import load_reference_folder
 class SQLdepth:
     """Callable depth model: images [B,H,W,3] in [0,1] -> depth [B,H,W,1].
 
-    ``opt`` is an ``sfmnext_tpu.config.Options`` or any object with its
+    ``opt`` is a ``sfmnext_tpu_torch.config.Options`` or any object with its
     model fields (backbone, num_layers, num_features, model_dim,
     patch_size, query_nums, dim_out, min_depth, max_depth, compute_dtype,
     seed, load_pretrained_model, load_pt_folder); the decoder itself

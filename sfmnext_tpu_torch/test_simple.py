@@ -25,7 +25,7 @@ import sys
 import numpy as np
 import torch
 
-from sfmnext_tpu.config import parse_options
+from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.device import cuda_device, disable_tf32
 from sfmnext_tpu_torch.sql_depth import SQLdepth
 

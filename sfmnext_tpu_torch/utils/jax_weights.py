@@ -1,19 +1,20 @@
 """Weights into the port: from the JAX package's variables, or from a
 reference-style folder of ``.pth`` files.
 
-Both go through the reference's state-dict names, which
-``sfmnext_tpu.utils.torch_export`` (numpy only, no JAX) produces from the
-JAX parameter trees. That module is imported inside ``from_jax_variables``
-only, so loading weights for inference imports nothing of the JAX package.
+Both go through the reference's state-dict names, which the port's own
+``utils/torch_export.py`` (numpy only) produces from the JAX parameter
+trees; nothing of the JAX package is imported.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Dict
 
 import numpy as np
 import torch
+
+from sfmnext_tpu_torch.utils import torch_export
 
 _NON_TENSOR_KEYS = ("height", "width", "use_stereo")
 
@@ -22,15 +23,19 @@ def _to_torch(sd) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
 
 
-def from_jax_variables(variables) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+def from_jax_variables(variables) -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX ``{"params", "batch_stats"}`` (arrays or numpy) -> the port's
-    (encoder state dict, depth state dict)."""
-    from sfmnext_tpu.utils import torch_export
-
+    state dicts ``{"encoder", "depth"[, "pose"]}``, BatchNorm running
+    statistics included; ``"pose"`` when the tree holds a PoseCNN."""
     params, stats = variables["params"], variables["batch_stats"]
-    enc = torch_export.export_resnet_encoder_decoder(params["encoder"], stats["encoder"])
-    dep = torch_export.export_sql_decoder(params["depth"])
-    return _to_torch(enc), _to_torch(dep)
+    out = {
+        "encoder": _to_torch(torch_export.export_resnet_encoder_decoder(
+            params["encoder"], stats["encoder"])),
+        "depth": _to_torch(torch_export.export_sql_decoder(params["depth"])),
+    }
+    if "pose" in params:
+        out["pose"] = _to_torch(torch_export.export_pose_cnn(params["pose"]))
+    return out
 
 
 def load_reference_folder(folder: str, models) -> None:

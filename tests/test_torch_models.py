@@ -18,10 +18,11 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from sfmnext_tpu.models.decoder_bn import ResnetEncoderDecoder as JaxEncoderDecoder
+from sfmnext_tpu.models.pose_cnn import PoseCNN as JaxPoseCNN
 from sfmnext_tpu.models.resnet import ResNetEncoder as JaxResNetEncoder
 from sfmnext_tpu.models.sql_decoder import SQLDecoder as JaxSQLDecoder
 from sfmnext_tpu.utils import torch_export
-from sfmnext_tpu_torch.models import ResNetEncoder, ResnetEncoderDecoder, SQLDecoder
+from sfmnext_tpu_torch.models import PoseCNN, ResNetEncoder, ResnetEncoderDecoder, SQLDecoder
 from sfmnext_tpu_torch.utils.jax_weights import from_jax_variables
 
 H, W = 64, 192
@@ -154,13 +155,38 @@ def test_sql_decoder_bf16_matches_jax_pallas():
 
 
 def test_from_jax_variables_names_match_the_port():
-    """from_jax_variables gives state dicts the port loads strictly."""
+    """from_jax_variables gives state dicts the port loads strictly, the
+    PoseCNN's included, with the JAX package's name maps."""
     enc = JaxEncoderDecoder(num_layers=18, num_features=64, model_dim=16)
     enc_vars = numpy_variables(enc.init, 6, _images(6))
     _, dep_params = _sql_setup(6)
-    enc_sd, dep_sd = from_jax_variables({
-        "params": {"encoder": enc_vars["params"], "depth": dep_params},
+    pose_params = numpy_variables(JaxPoseCNN().init, 6, np.zeros((1, H, W, 6), np.float32))
+    sds = from_jax_variables({
+        "params": {"encoder": enc_vars["params"], "depth": dep_params,
+                   "pose": pose_params["params"]},
         "batch_stats": {"encoder": enc_vars["batch_stats"]},
     })
-    ResnetEncoderDecoder(18, 64, 16).load_state_dict(enc_sd, strict=True)
-    SQLDecoder(**SQL_KW).load_state_dict(dep_sd, strict=True)
+    ResnetEncoderDecoder(18, 64, 16).load_state_dict(sds["encoder"], strict=True)
+    SQLDecoder(**SQL_KW).load_state_dict(sds["depth"], strict=True)
+    PoseCNN().load_state_dict(sds["pose"], strict=True)
+    expect = torch_export.export_resnet_encoder_decoder(enc_vars["params"], enc_vars["batch_stats"])
+    assert sorted(sds["encoder"]) == sorted(expect)
+    for k, v in expect.items():
+        np.testing.assert_array_equal(sds["encoder"][k].numpy(), v, err_msg=k)
+
+
+def test_pose_cnn_matches_jax():
+    """The port's plain strided convolutions against the JAX PoseCNN's
+    space-to-depth ones, on the same weights."""
+    x = np.random.RandomState(15).rand(2, H, W, 6).astype(np.float32)
+    jax_model = JaxPoseCNN()
+    variables = numpy_variables(jax_model.init, 15, x)
+    expect = jax.jit(jax_model.apply)(variables, x)
+    model = PoseCNN()
+    model.load_state_dict(_to_torch(torch_export.export_pose_cnn(variables["params"])),
+                          strict=True)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x).permute(0, 3, 1, 2))
+    for g, e in zip(got, expect):
+        assert g.shape == (2, 1, 1, 3)
+        _assert_close(g.numpy(), e, 1e-4)

@@ -6,9 +6,10 @@
     through ``load_pt_folder``: its depth matches the JAX forward of
     ``sfmnext_tpu/sql_depth.py`` to 1e-4 of the largest depth;
   * the port's CLI writes both output images;
-  * the port imports no JAX, neither at run time nor in its source, and
-    its serving path (``SQLdepth`` with a plain options object, as
-    ``chip_smoke.py`` drives it) imports nothing of the JAX package.
+  * the port imports neither JAX nor the JAX package, in its source or at
+    run time: serving (``SQLdepth``) and a training step run in a
+    subprocess with none of them in ``sys.modules``;
+  * its own copy of the options matches the JAX package's.
 """
 
 import dataclasses
@@ -74,9 +75,15 @@ def test_cli_writes_depth_png_and_colormap(tmp_path):
 
 
 def test_port_runs_without_jax():
+    """Serving, and one training step, import nothing of JAX or the JAX
+    package."""
     script = (
-        "import sys, types, numpy as np\n"
+        "import sys, types, numpy as np, torch\n"
+        "from sfmnext_tpu_torch.config import parse_options\n"
+        "from sfmnext_tpu_torch.data.synthetic import make_batch\n"
         "from sfmnext_tpu_torch.sql_depth import SQLdepth\n"
+        "from sfmnext_tpu_torch.training.builder import build_models\n"
+        "from sfmnext_tpu_torch.training.step import make_optimizer, make_train_step\n"
         "opt = types.SimpleNamespace(\n"
         "    backbone='resnet', num_layers=18, num_features=64, model_dim=16,\n"
         "    patch_size=8, query_nums=16, dim_out=32, min_depth=0.001,\n"
@@ -84,6 +91,16 @@ def test_port_runs_without_jax():
         "    load_pretrained_model=False, load_pt_folder=None)\n"
         "depth = SQLdepth(opt, 'cpu')(np.zeros((1, 64, 192, 3), np.float32))\n"
         "assert tuple(depth.shape) == (1, 64, 192, 1)\n"
+        "opt = parse_options(['--num_layers', '18', '--num_features', '64',\n"
+        "    '--model_dim', '16', '--patch_size', '4', '--query_nums', '16',\n"
+        "    '--dim_out', '16', '--height', '64', '--width', '96', '--no_ssim',\n"
+        "    '--compute_dtype', 'float32'])\n"
+        "models = build_models(opt, 'cpu', train=True)\n"
+        "step = make_train_step(opt, models, *make_optimizer(opt, models, 10))\n"
+        "batch = {k: torch.from_numpy(v) for k, v in make_batch(2, 64, 96).items()\n"
+        "         if k != 'depth_gt'}\n"
+        "loss = float(step(batch, torch.Generator().manual_seed(0))['loss'])\n"
+        "assert np.isfinite(loss), loss\n"
         "loaded = [m for m in sys.modules\n"
         "          if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sfmnext_tpu')]\n"
         "assert not loaded, loaded\n"
@@ -95,7 +112,23 @@ def test_port_runs_without_jax():
 
 
 def test_port_source_imports_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b", re.M)
+    """No module of the port, and not chip_smoke.py, imports JAX or the JAX
+    package (``sfmnext_tpu``; ``sfmnext_tpu_torch`` is the port itself)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|sfmnext_tpu)\b", re.M)
     files = [*(ROOT / "sfmnext_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_port_config_is_a_copy_of_the_jax_one():
+    """The port's Options has the JAX package's fields and defaults, and
+    parses the flagship argfile to the same values."""
+    import sfmnext_tpu.config as jax_config
+
+    from sfmnext_tpu_torch import config
+
+    fields = [(f.name, f.default) for f in dataclasses.fields(config.Options)]
+    assert fields == [(f.name, f.default) for f in dataclasses.fields(jax_config.Options)]
+    argv = [str(ROOT / "args_files" / "hisfog" / "kitti" / "resnet_320x1024.txt"), "--no_ssim"]
+    assert (dataclasses.asdict(config.parse_options(argv))
+            == dataclasses.asdict(jax_config.parse_options(argv)))
