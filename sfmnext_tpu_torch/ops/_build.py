@@ -94,19 +94,29 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The built kernels, with every C signature declared."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    signatures = {
-        # pointers, then ints, then the stream
-        "sql_summary_fwd": (8, 5),
-        "sql_depth_fwd": (6, 5),
-        "sql_summary_bwd": (9, 5),
-        "sql_depth_bwd": (15, 6),
-        "warp_border_fwd": (4, 6),
-        "warp_border_bwd": (6, 6),
+    i32 = ctypes.c_int
+    codes = {
+        "a": ctypes.POINTER(ctypes.c_void_p),  # an array of device pointers
+        "p": ctypes.c_void_p,
+        "i": i32,
+        "f": ctypes.c_float,  # passed as an int, a float arrives as garbage
     }
-    for name, (n_ptr, n_int) in signatures.items():
+    signatures = {
+        # arrays and pointers, then ints, then floats; the stream follows
+        "sql_summary_fwd": "p" * 8 + "i" * 5,
+        "sql_depth_fwd": "p" * 6 + "i" * 5,
+        "sql_summary_bwd": "p" * 9 + "i" * 5,
+        "sql_depth_bwd": "p" * 15 + "i" * 6,
+        "warp_border_fwd": "p" * 4 + "i" * 6,
+        "warp_border_bwd": "p" * 6 + "i" * 6,
+        "ssim_fwd": "app" + "i" * 5 + "f",
+        "ssim_ident_min": "appppp" + "i" * 6 + "f",
+        "ssim_bwd": "aappp" + "i" * 5 + "f",
+        "color_jitter": "p" * 5 + "i" * 5,
+    }
+    for name, sig in signatures.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
+        fn.argtypes = [codes[k] for k in sig] + [ctypes.c_void_p]
         fn.restype = i32
     lib.sql_kernel_error_string.argtypes = [i32]
     lib.sql_kernel_error_string.restype = ctypes.c_char_p
@@ -138,6 +148,11 @@ def kernel_device(*tensors) -> torch.device:
 def stream(dev: torch.device) -> int:
     """The current CUDA stream of ``dev``, as the kernels take it."""
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """The tensors' device addresses as a C array (an ``"a"`` argument)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def check_error(lib, err: int, name: str) -> None:

@@ -1,23 +1,49 @@
-"""Training losses. Counterpart of ``sfmnext_tpu/ops/losses.py``: the L1
-photometric stack, the min-reprojection combine with automasking, and
-edge-aware smoothness (reference trainer.py:441-549, layers.py:267-280).
+"""Training losses. Counterpart of ``sfmnext_tpu/ops/losses.py``: the
+photometric stack (0.85 SSIM + 0.15 L1, or L1 alone under ``--no_ssim``),
+the min-reprojection combine with automasking, and edge-aware smoothness
+(reference trainer.py:441-549, layers.py:267-280).
 
-The SSIM term (``--no_ssim`` off, the reference default) runs on the TPU
-as fused Pallas kernels that the port does not have yet; the pipeline
-raises without ``--no_ssim``. Layouts are the JAX package's NHWC.
+These are the plain ops. The training step's fused route (SSIM stacks,
+identity stack and min in the Hopper kernels) is ``ops/ssim_kernel.py``.
+Layouts are the JAX package's NHWC.
 """
 
 from __future__ import annotations
 
 import torch
 
+from sfmnext_tpu_torch.ops.image import ssim, ssim_multi, ssim_target_stats
 
-def reprojection_losses_stacked(preds, target):
+
+def reprojection_loss(pred, target, ssim_weight: float = 0.85, use_ssim: bool = True):
+    """Per-pixel photometric error [B,H,W,1] (reference trainer.py:441-453)."""
+    l1 = (target - pred).abs().mean(dim=-1, keepdim=True)
+    if not use_ssim:
+        return l1
+    ssim_err = ssim(pred, target).mean(dim=-1, keepdim=True)
+    return ssim_weight * ssim_err + (1.0 - ssim_weight) * l1
+
+
+def reprojection_losses_stacked(preds, target, ssim_weight: float = 0.85,
+                                use_ssim: bool = True, target_stats=None):
     """Per-frame photometric error [B,H,W,N] of N predictions [B,H,W,3]
-    against one target without the SSIM term (``use_ssim=False``): the
-    mean absolute error over the channels (in the inputs' dtype, the
-    channel mean accumulated in float32)."""
-    return torch.stack([(target - p).abs().mean(dim=-1) for p in preds], dim=-1)
+    against one target, the math of :func:`reprojection_loss` per frame.
+
+    The L1 term is computed in the inputs' dtype (the channel mean
+    accumulated in float32); the SSIM term takes the products in the inputs'
+    dtype and pools in float32. All N predictions share one channel-stacked
+    SSIM pass and the target statistics (``target_stats``:
+    ``ssim_target_stats(target)``, or None to compute).
+    """
+    l1 = torch.stack([(target - p).abs().mean(dim=-1) for p in preds], dim=-1)
+    if not use_ssim:
+        return l1
+    if target_stats is None:
+        target_stats = ssim_target_stats(target)
+    stacked = torch.cat(list(preds), dim=-1)  # [B,H,W,3N]
+    b, h, w, _ = stacked.shape
+    ssim_err = ssim_multi(stacked, target_stats).reshape(b, h, w, len(preds), 3).mean(dim=-1)
+    return ssim_weight * ssim_err + (1.0 - ssim_weight) * l1
 
 
 def min_reprojection_loss(reproj_losses, identity_losses=None, noise=None,

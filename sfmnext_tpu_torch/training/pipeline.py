@@ -1,24 +1,25 @@
 """The self-supervised forward and loss. Counterpart of
-``sfmnext_tpu/training/pipeline.py`` (reference trainer.py:266-549) on the
-path without SSIM: ``predict_poses`` in its PoseCNN batched-pairs branch
-and ``forward``'s non-fused loss (L1 photometric stack, min-reprojection
-with automasking, edge-aware smoothness).
+``sfmnext_tpu/training/pipeline.py`` (reference trainer.py:266-549):
+``predict_poses`` in its PoseCNN batched-pairs branch and ``forward``
+(photometric stack with SSIM or, under ``--no_ssim``, L1 alone;
+min-reprojection with automasking; edge-aware smoothness).
 
 The batch is the JAX package's: ``color`` and ``color_aug`` [B,F,H,W,3]
 with F following ``opt.all_frame_ids``, ``K`` and ``inv_K`` [B,4,4], all
 on the models' device. The networks run under autocast in the compute
 dtype (their parameters stay float32, as flax keeps its params); depth,
 geometry, warps and losses run outside it, the geometry and warps in
-float32. With ``opt.use_pallas`` the SQL decoder and the warps go through
-the Hopper kernels (their plain versions for CPU tensors); without it,
-through the plain ops.
+float32. With ``opt.use_pallas`` the SQL decoder, the warps and the SSIM
+loss go through the Hopper kernels (their plain versions for CPU
+tensors), as the JAX package routes them on a TPU; without it, through
+the plain ops.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sfmnext_tpu_torch.ops import geometry, losses as L
+from sfmnext_tpu_torch.ops import geometry, losses as L, ssim_kernel
 from sfmnext_tpu_torch.ops.image import resize_bilinear
 from sfmnext_tpu_torch.ops.warp import warp_frame
 
@@ -65,15 +66,13 @@ def forward(models, batch, opt, noise=None):
     Args:
       models: a training ``ModelBundle``.
       batch: the tensors described in the module docstring.
-      opt: Options (``no_ssim`` must be set: the SSIM term is not ported).
+      opt: Options.
       noise: tie-break noise for the identity losses, [1,H,W,n_sources]
         (the JAX package draws 1e-5 * N(0,1) there), or None.
     Returns:
       (total loss, {"outputs", "metrics"}); BatchNorm running statistics
       update in place.
     """
-    if not opt.no_ssim:
-        raise NotImplementedError("the SSIM loss is not ported yet; pass --no_ssim")
     if opt.predictive_mask or opt.use_stereo:
         raise NotImplementedError("--predictive_mask and --use_stereo are not ported yet")
     frame_ids = opt.all_frame_ids
@@ -95,7 +94,7 @@ def forward(models, batch, opt, noise=None):
 
     # 3. warp every source frame into the target view
     K, inv_K = batch["K"], batch["inv_K"]
-    target = color[:, 0]
+    target = color[:, 0].contiguous()  # the loss kernels' [B,H,W,3] layout
     loss_dtype = opt.compute_dtype if opt.loss_dtype == "auto" else opt.loss_dtype
     ldt = torch.bfloat16 if loss_dtype == "bfloat16" else torch.float32
     warped_srcs, ident_srcs = [], []
@@ -109,19 +108,41 @@ def forward(models, batch, opt, noise=None):
         warped_srcs.append(warped)
         ident_srcs.append(src)
 
-    # 4. photometric stacks in the loss dtype, maps in float32, then the
-    # min over frames with automasking
-    target_l = target.to(ldt)
-    reproj = L.reprojection_losses_stacked([x.to(ldt) for x in warped_srcs], target_l).float()
-    ident = None
-    if not opt.disable_automasking:
-        with torch.no_grad():
-            ident = L.reprojection_losses_stacked(
-                [x.to(ldt) for x in ident_srcs], target_l).float()
-    to_optimise, automask = L.min_reprojection_loss(
-        [reproj], [ident] if ident is not None else None, noise=noise,
-        avg_reprojection=opt.avg_reprojection,
-    )
+    # 4. photometric maps (inputs in the loss dtype, maps in float32), then
+    # the min over frames with automasking (trainer.py:441-530)
+    use_ssim = not opt.no_ssim
+    fused = use_ssim and opt.use_pallas
+    automasking = not opt.disable_automasking
+    if fused and automasking and opt.avg_reprojection:
+        raise NotImplementedError(
+            "--avg_reprojection needs the identity stack without the fused min, TPU "
+            "kernel #8 (ssim_kernel.py _call_fwd_only), which is not ported yet")
+    if fused and automasking:
+        # the SSIM stacks, the identity stack, the noise and the min in the
+        # kernels; the identities' maps never reach device memory
+        to_optimise, automask = ssim_kernel.reprojection_min(
+            warped_srcs, ident_srcs, target, noise, opt.ssim_weight, ldt)
+    else:
+        ident = None
+        if fused:  # --disable_automasking: no identity stack
+            reproj = ssim_kernel.reprojection_losses(warped_srcs, target, opt.ssim_weight, ldt)
+        else:
+            target_l = target.to(ldt)
+            tstats = L.ssim_target_stats(target_l) if use_ssim else None
+
+            def stack(srcs):
+                return L.reprojection_losses_stacked(
+                    [x.to(ldt) for x in srcs], target_l, opt.ssim_weight, use_ssim,
+                    tstats).float()
+
+            reproj = stack(warped_srcs)
+            if automasking:
+                with torch.no_grad():
+                    ident = stack(ident_srcs)
+        to_optimise, automask = L.min_reprojection_loss(
+            [reproj], [ident] if ident is not None else None, noise=noise,
+            avg_reprojection=opt.avg_reprojection,
+        )
     if automask is not None:
         outputs["automask"] = automask
     loss = to_optimise.mean()

@@ -17,13 +17,29 @@ value, as tests/test_torch_sql_kernel.py holds the plain versions to the
 Pallas kernels. The warp kernels compute the plain version's float32
 arithmetic (contracted into FMAs): outputs and coordinate gradients to
 1e-5 of their largest value.
+
+The SSIM kernels (flagship B=8, 320x1024, 2 warped and 2 identity
+sources; ragged shapes with H, W off the 16x32 tile, H = 4, 3 sources)
+sum the 7x7 windows in another order than the plain average pool, with
+FMAs: the variance E[p^2] - mu^2 cancels against the 9e-4 constant, so
+the maps agree to 1e-4 (float32 and bf16 inputs alike: both sides round
+the inputs the same way). The min agrees to 1e-4 and its argument
+wherever the winner leads by more than 2e-4; an identity equal to a warped
+source takes every tie, so that source never wins and gets no gradient.
+The backward divides by the squared SSIM denominator, which amplifies the
+summation-order differences: its gradients agree to 1e-3 of their largest
+value in float32, and to 1e-2 with bf16 rounding (one bf16 step). The
+jitter kernel computes the plain float32 formulas with FMAs: 1e-5; a
+sample without jitter is copied bit for bit.
 """
 
 import pytest
 import torch
 
 from sfmnext_tpu_torch.device import disable_tf32
-from sfmnext_tpu_torch.ops import sql_attention, sql_kernel, warp, warp_kernel
+from sfmnext_tpu_torch.data import augment
+from sfmnext_tpu_torch.ops import (jitter_kernel, sql_attention, sql_kernel, ssim_kernel, warp,
+                                   warp_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -174,3 +190,93 @@ def test_fused_ops_carry_gradients_on_the_card(dev):
         before[0] + 1, before[1] + 1)
     for t in (feats, queries, w, bias, centers):
         assert t.grad is not None and bool(torch.isfinite(t.grad.float()).all())
+
+
+# (B, H, W, warped sources, identity sources)
+SSIM_SHAPES = [(8, 320, 1024, 2, 2), (2, 37, 53, 3, 3), (2, 4, 9, 3, 2), (1, 21, 70, 1, 1)]
+SSIM_MAP_TOL = 1e-4
+LOSS_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _ssim_inputs(dev, b, h, w, n, m, seed):
+    """A target, warped sources near it, identity sources, noise."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    target = torch.rand(b, h, w, 3, device=dev, generator=gen)
+    preds = [(target + 0.1 * (k + 1) * torch.randn(b, h, w, 3, device=dev, generator=gen))
+             .clamp(0, 1) for k in range(n)]
+    idents = [torch.rand(b, h, w, 3, device=dev, generator=gen) for _ in range(m)]
+    noise = 1e-3 * torch.randn(1, h, w, m, device=dev, generator=gen)
+    return preds, idents, target, noise
+
+
+@pytest.mark.parametrize("loss_dtype", LOSS_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SSIM_SHAPES, ids=str)
+def test_ssim_kernels_match_plain(dev, shape, loss_dtype):
+    preds, idents, target, noise = _ssim_inputs(dev, *shape, seed=sum(shape))
+    before = (ssim_kernel.ssim_fwd.launches, ssim_kernel.ssim_ident_min.launches,
+              ssim_kernel.ssim_bwd.launches)
+    maps = ssim_kernel.ssim_fwd(preds, target, loss_dtype=loss_dtype)
+    out_min, arg = ssim_kernel.ssim_ident_min(idents, target, noise, maps, loss_dtype=loss_dtype)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.randn(out_min.shape, device=dev, generator=gen)
+    dps = ssim_kernel.ssim_bwd(preds, target, g, arg, loss_dtype=loss_dtype)
+    g_maps = torch.randn(maps.shape, device=dev, generator=gen)
+    dps_direct = ssim_kernel.ssim_bwd(preds, target, g_maps, None, loss_dtype=loss_dtype)
+    torch.cuda.synchronize()
+    assert (ssim_kernel.ssim_fwd.launches, ssim_kernel.ssim_ident_min.launches,
+            ssim_kernel.ssim_bwd.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+    want_maps = ssim_kernel.plain_maps(preds, target, loss_dtype=loss_dtype)
+    torch.testing.assert_close(maps, want_maps, rtol=0, atol=SSIM_MAP_TOL)
+    want_min, want_arg = ssim_kernel.plain_ident_min(idents, target, noise, want_maps,
+                                                     loss_dtype=loss_dtype)
+    torch.testing.assert_close(out_min, want_min, rtol=0, atol=SSIM_MAP_TOL)
+    cands = torch.cat([ssim_kernel.plain_maps(idents, target, loss_dtype=loss_dtype) + noise,
+                       want_maps], dim=-1)
+    top2 = cands.topk(2, dim=-1, largest=False).values
+    clear = top2[..., 1] - top2[..., 0] > 2 * SSIM_MAP_TOL
+    assert bool((arg == want_arg)[clear].all())
+
+    # gradients under the plain routing where the two agree
+    tol = 1e-3 if loss_dtype == torch.float32 else 1e-2
+    want = ssim_kernel.plain_bwd(preds, target, g, arg, loss_dtype=loss_dtype)
+    for a, w in zip(dps, want):
+        _assert_scaled(a, w, tol)
+    want = ssim_kernel.plain_bwd(preds, target, g_maps, None, loss_dtype=loss_dtype)
+    for a, w in zip(dps_direct, want):
+        _assert_scaled(a, w, tol)
+
+
+@pytest.mark.parametrize("shape", [SSIM_SHAPES[0], SSIM_SHAPES[1]], ids=str)
+def test_identity_takes_ties_on_the_card(dev, shape):
+    """An identity source equal to warped source 0 takes every pixel that
+    source would win: it never wins, and its gradient is zero."""
+    preds, idents, target, _ = _ssim_inputs(dev, *shape, seed=3)
+    idents[0] = preds[0]
+    ps = [p.clone().requires_grad_() for p in preds]
+    to_opt, automask = ssim_kernel.reprojection_min(ps, idents, target, None)
+    to_opt.sum().backward()
+    torch.cuda.synchronize()
+    _, arg = ssim_kernel.ssim_ident_min(
+        idents, target, None, ssim_kernel.ssim_fwd(preds, target))
+    assert not bool((arg == 0).any())
+    assert not bool(ps[0].grad.any())
+    assert not bool(automask[arg == shape[3]].any())
+
+
+@pytest.mark.parametrize("shape", [(8, 3, 320, 1024), (2, 3, 37, 53), (3, 1, 4, 5)], ids=str)
+def test_jitter_kernel_matches_plain(dev, shape):
+    b, f, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    color = torch.rand(b, f, h, w, 3, device=dev, generator=gen)
+    order, factors, _ = augment.jitter_params(gen, b)
+    order[0] = torch.tensor([1, 0, 2, 3], device=dev, dtype=torch.int32)  # contrast first
+    order[1] = torch.tensor([3, 2, 0, 1], device=dev, dtype=torch.int32)  # contrast last
+    do_jit = torch.arange(b, device=dev) % 3 != 2  # mixed
+    before = jitter_kernel.color_jitter.launches
+    got = jitter_kernel.color_jitter(color, order, factors, do_jit)
+    torch.cuda.synchronize()
+    assert jitter_kernel.color_jitter.launches == before + 1
+    want = jitter_kernel.plain_color_jitter(color, order, factors, do_jit)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got[~do_jit], color[~do_jit])

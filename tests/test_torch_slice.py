@@ -7,8 +7,9 @@
     ``sfmnext_tpu/sql_depth.py`` to 1e-4 of the largest depth;
   * the port's CLI writes both output images;
   * the port imports neither JAX nor the JAX package, in its source or at
-    run time: serving (``SQLdepth``) and a training step run in a
-    subprocess with none of them in ``sys.modules``;
+    run time: serving (``SQLdepth``) and a training step with the SSIM
+    loss and on-device augmentation run in a subprocess with none of them
+    in ``sys.modules``;
   * its own copy of the options matches the JAX package's.
 """
 
@@ -75,8 +76,8 @@ def test_cli_writes_depth_png_and_colormap(tmp_path):
 
 
 def test_port_runs_without_jax():
-    """Serving, and one training step, import nothing of JAX or the JAX
-    package."""
+    """Serving, and one augmented training step with the SSIM loss, import
+    nothing of JAX or the JAX package."""
     script = (
         "import sys, types, numpy as np, torch\n"
         "from sfmnext_tpu_torch.config import parse_options\n"
@@ -93,10 +94,10 @@ def test_port_runs_without_jax():
         "assert tuple(depth.shape) == (1, 64, 192, 1)\n"
         "opt = parse_options(['--num_layers', '18', '--num_features', '64',\n"
         "    '--model_dim', '16', '--patch_size', '4', '--query_nums', '16',\n"
-        "    '--dim_out', '16', '--height', '64', '--width', '96', '--no_ssim',\n"
+        "    '--dim_out', '16', '--height', '64', '--width', '96',\n"
         "    '--compute_dtype', 'float32'])\n"
         "models = build_models(opt, 'cpu', train=True)\n"
-        "step = make_train_step(opt, models, *make_optimizer(opt, models, 10))\n"
+        "step = make_train_step(opt, models, *make_optimizer(opt, models, 10), augment=True)\n"
         "batch = {k: torch.from_numpy(v) for k, v in make_batch(2, 64, 96).items()\n"
         "         if k != 'depth_gt'}\n"
         "loss = float(step(batch, torch.Generator().manual_seed(0))['loss'])\n"

@@ -2,11 +2,14 @@
 and batch, in float32 on the CPU.
 
 A tiny model (ResNet-18, num_features 64, model_dim 16, patch 4, 16
-queries, 16 bins, 64x96, batch 2, ``--no_ssim``): weights drawn with numpy
-into the JAX variable tree and carried to the port by
-``from_jax_variables``; the batch is ``data/synthetic.py``'s. Dropout is
-off on both sides (the JAX decoder cloned with ``deterministic=True``, the
-port's dropout modules in eval mode) and so is the tie-break noise
+queries, 16 bins, 64x96, batch 2) with the flagship loss (SSIM weight
+0.85, automasking): weights drawn with numpy into the JAX variable tree
+and carried to the port by ``from_jax_variables``; the batch is
+``data/synthetic.py``'s. The port takes its fused route
+(``ssim_kernel.reprojection_min``, whose CPU path is the kernels' plain
+versions), the JAX package on the CPU its XLA route. Dropout is off on
+both sides (the JAX decoder cloned with ``deterministic=True``, the port's
+dropout modules in eval mode) and so is the tie-break noise
 (``rng=None``). Held against ``jax.value_and_grad(pipeline.forward)``:
 
   * the loss and its two terms, to 1e-5 relative;
@@ -18,7 +21,14 @@ port's dropout modules in eval mode) and so is the tie-break noise
     flax moves the running variance towards the *biased* batch variance;
   * the parameters after Adam steps fed the JAX gradients, against
     ``make_optimizer(...).update``, across the step-LR boundary and with
-    ``--diff_lr``, to 1e-6 relative.
+    ``--diff_lr``, to 1e-6 relative;
+  * the other loss routes (``--disable_automasking`` through
+    ``ssim_kernel.reprojection_losses``, ``--no_ssim``, ``--avg_reprojection``
+    without automasking) give the plain route's loss (``use_pallas`` off),
+    and ``--avg_reprojection`` with automasking, which needs TPU kernel #8,
+    raises;
+  * ``make_train_step(augment=True)`` takes a finite step with a generator
+    and raises without one.
 """
 
 import dataclasses
@@ -37,14 +47,14 @@ from sfmnext_tpu.training.step import make_optimizer as jax_make_optimizer
 from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.training import pipeline
 from sfmnext_tpu_torch.training.builder import build_models
-from sfmnext_tpu_torch.training.step import make_optimizer
+from sfmnext_tpu_torch.training.step import make_optimizer, make_train_step
 from sfmnext_tpu_torch.utils import torch_export
 from sfmnext_tpu_torch.utils.jax_weights import from_jax_variables
 from test_torch_models import numpy_variables
 
 ARGS = ["--num_layers", "18", "--num_features", "64", "--model_dim", "16",
         "--patch_size", "4", "--query_nums", "16", "--dim_out", "16",
-        "--height", "64", "--width", "96", "--batch_size", "2", "--no_ssim",
+        "--height", "64", "--width", "96", "--batch_size", "2",
         "--compute_dtype", "float32", "--scheduler_step_size", "1"]
 EXPORTS = {
     "encoder": lambda tree, stats: torch_export.export_resnet_encoder_decoder(
@@ -170,3 +180,36 @@ def test_adam_steps_match_optax(step, diff_lr):
                               sorted(getattr(models, name).named_parameters())])
         np.testing.assert_allclose(got, np.asarray(params[name]), rtol=1e-6, atol=1e-7,
                                    err_msg=name)
+
+
+def _batch():
+    return {k: torch.from_numpy(v) for k, v in make_batch(2, 64, 96, seed=3).items()
+            if k != "depth_gt"}
+
+
+@pytest.mark.parametrize("flags", [["--disable_automasking"], ["--no_ssim"],
+                                   ["--avg_reprojection", "--disable_automasking"]], ids=" ".join)
+def test_loss_routes_match_the_plain_route(step, flags):
+    totals = []
+    for use_pallas in (True, False):
+        opt = dataclasses.replace(parse_options(ARGS + flags), use_pallas=use_pallas)
+        total, _ = pipeline.forward(_port_models(step["variables"], opt), _batch(), opt)
+        totals.append(total.item())
+    np.testing.assert_allclose(totals[0], totals[1], rtol=1e-6)
+
+
+def test_avg_reprojection_with_automasking_raises(step):
+    opt = parse_options(ARGS + ["--avg_reprojection"])
+    with pytest.raises(NotImplementedError, match="#8"):
+        pipeline.forward(_port_models(step["variables"], opt), _batch(), opt)
+
+
+def test_augmented_step_needs_a_generator():
+    opt = parse_options(ARGS)
+    models = build_models(opt, "cpu", train=True)
+    step = make_train_step(opt, models, *make_optimizer(opt, models, 10), augment=True)
+    batch = _batch()
+    with pytest.raises(ValueError):
+        step(batch)
+    metrics = step(batch, torch.Generator().manual_seed(0))
+    assert np.isfinite(metrics["loss"].item())
