@@ -41,7 +41,8 @@ class SyntheticDriveDataset:
     """Batches shaped like the real pipeline output.
 
     Keys: 'color', 'color_aug' [B,F,H,W,3] (F = frame_ids order),
-    'K', 'inv_K' [B,4,4], 'depth_gt' [B,H,W,1].
+    'K', 'inv_K' [B,4,4], 'K3x3' [B,3,3] (K's corner, the indoor
+    pipeline's intrinsics), 'depth_gt' [B,H,W,1].
     """
 
     def __init__(self, height=64, width=96, frame_ids=(0, -1, 1), seed=0,
@@ -98,6 +99,7 @@ class SyntheticDriveDataset:
             "color_aug": color.copy(),
             "K": np.broadcast_to(self.K, (batch_size, 4, 4)).copy(),
             "inv_K": np.broadcast_to(self.inv_K, (batch_size, 4, 4)).copy(),
+            "K3x3": np.broadcast_to(self.K[:3, :3], (batch_size, 3, 3)).copy(),
         }
         if self.with_depth_gt:
             out["depth_gt"] = depth_gt

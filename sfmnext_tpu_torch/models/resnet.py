@@ -3,10 +3,10 @@
 torchvision ResNet-18/34/50/101/152 (stride on the 3x3 of the bottleneck,
 ResNet v1.5) with the monodepth2 five-level taps and the (x-0.45)/0.225
 input normalisation. Parameter names are torchvision's under ``encoder.``,
-as the reference's ``networks/resnet_encoder.py`` stores them. The JAX
-package's variants (stacked input frames, SE, ECA, avg_down,
-anti-aliasing, GroupNorm, deep stems, ResNeXt widths) are not ported yet
-and raise.
+as the reference's ``networks/resnet_encoder.py`` stores them; frames
+stacked on channels (``num_input_images``) widen the stem. The JAX
+package's other variants (SE, ECA, avg_down, anti-aliasing, GroupNorm,
+deep stems, ResNeXt widths) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -81,11 +81,11 @@ class Bottleneck(nn.Module):
 class _Trunk(nn.Module):
     """torchvision ResNet without its head: conv1, bn1, layer1..layer4."""
 
-    def __init__(self, num_layers: int):
+    def __init__(self, num_layers: int, in_channels: int = 3):
         super().__init__()
         kind, stages = RESNET_SPECS[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
-        self.conv1 = _conv(3, 64, 7, 2)
+        self.conv1 = _conv(in_channels, 64, 7, 2)
         self.bn1 = BatchNorm2d(64)
         cin = 64
         for i, (width, n) in enumerate(zip((64, 128, 256, 512), stages)):
@@ -108,19 +108,21 @@ class _Trunk(nn.Module):
 class ResNetEncoder(nn.Module):
     """5-level pyramid [stem_relu, layer1, layer2, layer3, layer4], NCHW.
 
-    Takes images [B,3,H,W] in [0,1] and normalises them with
-    (x-0.45)/0.225.
+    Takes images [B,3n,H,W] in [0,1] (n frames stacked on channels) and
+    normalises them with (x-0.45)/0.225.
 
     Args:
       num_layers: 18/34/50/101/152.
       dtype: compute and parameter dtype (the JAX ``dtype``; bf16 params
         hold exactly what JAX's per-use cast of f32 params computes with).
-      **variants: the JAX package's other options (stacked input frames,
-        SE, ECA, avg_down, anti-aliasing, GroupNorm, deep stems, ResNeXt
-        widths); not ported yet.
+      num_input_images: n, the stacked frames (RectifyNet's encoder: 2).
+      **variants: the JAX package's other options (SE, ECA, avg_down,
+        anti-aliasing, GroupNorm, deep stems, ResNeXt widths); not ported
+        yet.
     """
 
-    def __init__(self, num_layers: int = 50, dtype=torch.float32, **variants):
+    def __init__(self, num_layers: int = 50, dtype=torch.float32, num_input_images: int = 1,
+                 **variants):
         super().__init__()
         if variants:
             raise NotImplementedError(
@@ -129,7 +131,7 @@ class ResNetEncoder(nn.Module):
             raise NotImplementedError(
                 f"ResNet-{num_layers}: the port has {sorted(RESNET_SPECS)}")
         self.dtype = dtype
-        self.encoder = _Trunk(num_layers)
+        self.encoder = _Trunk(num_layers, 3 * num_input_images)
         self.to(dtype)
 
     @staticmethod

@@ -90,6 +90,25 @@ class SQLDecoder(nn.Module):
             nn.init.zeros_(attn.out_proj.bias)
         nn.init.uniform_(self.positional_encodings, 0.0, 1.0, generator=generator)
 
+    def _patchify(self, x0: torch.Tensor) -> torch.Tensor:
+        """The k == stride patch-embedding convolution. On a CPU tensor in
+        bf16 it is computed in float32 on the bf16-rounded operands and
+        rounded back to bf16: oneDNN's bf16 convolution (torch 2.13 CPU)
+        miscomputes k == stride at 16 channels, with errors as large as the
+        outputs. The card's cuDNN convolution runs as it is."""
+        conv = self.embedding_convPxP
+        bf16 = x0.dtype == torch.bfloat16 or (
+            torch.is_autocast_enabled(x0.device.type)
+            and torch.get_autocast_dtype(x0.device.type) == torch.bfloat16)
+        if x0.device.type != "cpu" or not bf16:
+            return conv(x0)
+        with torch.autocast("cpu", enabled=False):
+            def rounded(t):
+                return t.to(torch.bfloat16).float()
+
+            return F.conv2d(rounded(x0), rounded(conv.weight), rounded(conv.bias),
+                            stride=conv.stride).to(torch.bfloat16)
+
     def forward(self, x0: torch.Tensor, return_energy: bool = False):
         b, _, h, w = x0.shape
         p = self.patch_size
@@ -104,7 +123,7 @@ class SQLDecoder(nn.Module):
                 "queries are the first query_nums transformer outputs")
         x0 = x0.to(self.dtype)
 
-        emb = self.embedding_convPxP(x0).flatten(2).transpose(1, 2)  # [B,T,E]
+        emb = self._patchify(x0).flatten(2).transpose(1, 2)  # [B,T,E]
         emb = emb + self.positional_encodings[:n_tokens].to(emb.dtype)
         tokens = self.transformer_encoder(emb)
         queries = tokens[:, : self.query_nums]  # [B,Q,E]

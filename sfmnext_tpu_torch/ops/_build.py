@@ -107,8 +107,9 @@ def library() -> ctypes.CDLL:
         "sql_depth_fwd": "p" * 6 + "i" * 5,
         "sql_summary_bwd": "p" * 9 + "i" * 5,
         "sql_depth_bwd": "p" * 15 + "i" * 6,
-        "warp_border_fwd": "p" * 4 + "i" * 6,
-        "warp_border_bwd": "p" * 6 + "i" * 6,
+        "warp_fwd": "p" * 4 + "i" * 7,
+        "warp_bwd": "p" * 6 + "i" * 7,
+        "warp_bwd_img": "p" * 4 + "i" * 7,
         "ssim_fwd": "app" + "i" * 5 + "f",
         "ssim_ident_min": "appppp" + "i" * 6 + "f",
         "ssim_bwd": "aappp" + "i" * 5 + "f",

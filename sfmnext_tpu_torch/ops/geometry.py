@@ -1,5 +1,6 @@
 """Camera geometry. Counterpart of ``sfmnext_tpu/ops/geometry.py``
-(``rot_from_axisangle`` .. ``project_3d``, reference layers.py:75-258).
+(``rot_from_axisangle`` .. ``project_depth`` and ``euler_to_mat``,
+reference layers.py:75-258, 422-457).
 
 Pixel-coordinate math stays float32: the JAX package asks for
 ``Precision.HIGHEST`` on every product here, and the port's entry points
@@ -97,3 +98,28 @@ def project_3d(points, K, T, height: int, width: int, eps: float = 1e-7):
     sx = pix[..., 0] / (width - 1)
     sy = pix[..., 1] / (height - 1)
     return torch.stack([(sx - 0.5) * 2.0, (sy - 0.5) * 2.0], dim=-1)
+
+
+def project_depth(points, K, T, height: int, width: int):
+    """The depth (z) of points [B,4,H*W] in the camera K [B,4,4] after T
+    [B,4,4] -> [B,H,W,1] (reference layers.py:228-234)."""
+    proj = torch.matmul(K, T)[:, 2:3, :]  # only the z row is read
+    return _transform(proj, points).reshape(points.shape[0], height, width, 1)
+
+
+def euler_to_mat(angle: torch.Tensor) -> torch.Tensor:
+    """Euler angles [B,3] (x, y, z) -> rotation [B,3,3] = Rx @ Ry @ Rz
+    (reference layers.py:422-457)."""
+    x, y, z = angle.unbind(-1)
+    cz, sz = torch.cos(z), torch.sin(z)
+    cy, sy = torch.cos(y), torch.sin(y)
+    cx, sx = torch.cos(x), torch.sin(x)
+    zeros, ones = torch.zeros_like(z), torch.ones_like(z)
+
+    def mat(*entries):
+        return torch.stack(entries, dim=1).reshape(-1, 3, 3)
+
+    zmat = mat(cz, -sz, zeros, sz, cz, zeros, zeros, zeros, ones)
+    ymat = mat(cy, zeros, sy, zeros, ones, zeros, -sy, zeros, cy)
+    xmat = mat(ones, zeros, zeros, zeros, cx, -sx, zeros, sx, cx)
+    return torch.matmul(torch.matmul(xmat, ymat), zmat)

@@ -46,7 +46,14 @@ def reprojection_losses_stacked(preds, target, ssim_weight: float = 0.85,
     return ssim_weight * ssim_err + (1.0 - ssim_weight) * l1
 
 
-def min_reprojection_loss(reproj_losses, identity_losses=None, noise=None,
+def tiebreak_noise(generator: torch.Generator, shape) -> torch.Tensor:
+    """The identity losses' tie-break noise, 1e-5 * N(0,1) of shape
+    [1, *shape[1:]] on the generator's device (trainer.py:516-517; the JAX
+    package shares one draw across the batch, losses.py:62-82)."""
+    return 1e-5 * torch.randn((1, *shape[1:]), generator=generator, device=generator.device)
+
+
+def min_reprojection_loss(reproj_losses, identity_losses=None, generator=None,
                           avg_reprojection: bool = False):
     """Monodepth2's min over frames with automasking.
 
@@ -54,10 +61,12 @@ def min_reprojection_loss(reproj_losses, identity_losses=None, noise=None,
       reproj_losses: list of [B,H,W,F_i] per-source photometric errors.
       identity_losses: optional list of [B,H,W,F_i] errors of the unwarped
         sources; when given, automasking is on.
-      noise: optional tie-break noise added to the identity losses, of
-        their shape or broadcastable to it (the JAX package draws
-        1e-5 * N(0,1) of shape [1,H,W,F], trainer.py:516-517); None adds
-        none.
+      generator: a ``torch.Generator`` on the losses' device to draw the
+        identities' tie-break noise from (``tiebreak_noise``), in their
+        shape after ``avg_reprojection`` averages them (losses.py:111-115);
+        None adds none.
+      avg_reprojection: average the reprojection and the identity errors
+        over the sources before the min.
     Returns:
       (to_optimise [B,H,W], automask [B,H,W] float or None; 1 where a
       reprojection won).
@@ -70,8 +79,8 @@ def min_reprojection_loss(reproj_losses, identity_losses=None, noise=None,
     ident = torch.cat(identity_losses, dim=-1)
     if avg_reprojection:
         ident = ident.mean(dim=-1, keepdim=True)
-    if noise is not None:
-        ident = ident + noise
+    if generator is not None:
+        ident = ident + tiebreak_noise(generator, ident.shape)
     combined = torch.cat([ident, reproj], dim=-1)
     to_optimise, idxs = combined.min(dim=-1)
     automask = (idxs >= ident.shape[-1]).to(reproj.dtype)

@@ -13,8 +13,12 @@ the automask (reference trainer.py:441-530).
     ``_bwd_kernel``), counted in ``ssim_bwd.launches``.
 
 The entry points are ``reprojection_losses`` (the maps, differentiable in
-the predictions) and ``reprojection_min`` (the min and the automask,
-differentiable in the warped sources). The images are NHWC float32, as the
+the predictions), ``identity_losses`` (the maps of the unwarped sources,
+no gradient: ``ssim_fwd`` standing in for ``_call_fwd_only`` /
+``_fwd_only_kernel``, which it computes exactly since it keeps no
+residuals; counted in ``identity_losses.launches`` as well) and
+``reprojection_min`` (the min and the automask, differentiable in the
+warped sources). The images are NHWC float32, as the
 warp writes them; ``loss_dtype`` bfloat16 rounds them to bf16 as the
 kernels load them. Only the warped sources get a gradient: the target, the
 identity sources and the noise are data.
@@ -217,6 +221,21 @@ def reprojection_losses(preds, target, ssim_weight: float = 0.85, loss_dtype=tor
     against target (counterpart of ``reprojection_losses_pallas``);
     differentiable in the predictions."""
     return _ReprojectionLosses.apply(target, float(ssim_weight), loss_dtype, *preds)
+
+
+def identity_losses(idents, target, ssim_weight: float = 0.85, loss_dtype=torch.bfloat16):
+    """Per-source loss maps [B,H,W,M] float32 of M unwarped sources
+    [B,H,W,3] against target, with no gradient (counterpart of
+    ``reprojection_losses_pallas(need_grad=False)``): the identity stack of
+    a step that does not fold it into the min (``--avg_reprojection``)."""
+    with torch.no_grad():
+        maps = ssim_fwd(idents, target, ssim_weight, loss_dtype)
+    if maps.device.type == "cuda":  # ssim_fwd launched its kernel
+        identity_losses.launches += 1
+    return maps
+
+
+identity_losses.launches = 0
 
 
 def reprojection_min(preds, idents, target, noise=None, ssim_weight: float = 0.85,

@@ -1,18 +1,23 @@
-"""The view-synthesis warp as Hopper kernels, and its wrapper.
+"""The bilinear warp as Hopper kernels, and its wrappers.
 
-Counterpart of ``warp_border_pallas`` in
-``sfmnext_tpu/ops/pallas/warp_kernel.py``: a bilinear border-mode sample
-of an NHWC image at pixel coordinates whose gradient flows to the
-coordinates only (the sampled frame is training data).
+Counterpart of ``warp_border_pallas`` and ``warp_sample_pallas`` in
+``sfmnext_tpu/ops/pallas/warp_kernel.py``: a bilinear sample of an NHWC
+image at pixel coordinates, in border or zeros padding, differentiable in
+the coordinates and, where the sampled tensor carries gradients, in the
+image.
 
-  * forward  -> ``warp_border_fwd`` in ``csrc/warp_kernel.cu`` (replaces
-    ``_call_fwd`` / ``_fwd_kernel``), counted in ``warp_border.launches``;
-  * backward -> ``warp_border_bwd`` (replaces ``_call_bwd_coords`` /
-    ``_bwd_kernel``), counted in ``warp_border_bwd.launches``.
+  * ``warp_fwd``     -> ``warp_fwd`` in ``csrc/warp_kernel.cu`` (replaces
+    ``_call_fwd`` / ``_fwd_kernel``);
+  * ``warp_bwd``     -> ``warp_bwd`` (replaces ``_call_bwd_coords`` /
+    ``_bwd_kernel``), the coordinate gradient;
+  * ``warp_bwd_img`` -> ``warp_bwd_img`` (replaces ``_call_bwd_img`` /
+    ``_bwd_img_kernel``), the image gradient.
 
-The plain version is ``ops/warp.sample_border``: a CPU tensor takes it in
-the forward and autograd's gradient of it in the backward; a CUDA tensor
-launches the kernels or raises. The image gets no gradient either way.
+Each counts its launches per padding mode in ``<wrapper>.launches``
+(``{"border": n, "zeros": n}``). The entry point is ``warp_sample``. The
+plain versions are ``ops/warp.sample_border`` and ``ops/warp.sample_zeros``:
+a CPU tensor takes them in the forward and autograd's gradients of them in
+the backward; a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -21,82 +26,128 @@ import torch
 
 from sfmnext_tpu_torch.ops import _build, warp
 
+MODES = ("border", "zeros")
+
+
+def _mode(zeros: bool) -> str:
+    return MODES[int(bool(zeros))]
+
+
+def _check_coords(shape, fy, fx):
+    b, h, w, c = shape
+    _build.require(h >= 2 and w >= 2, f"image {tuple(shape)}: H and W must be >= 2")
+    _build.require(fy.dim() == 3 and fy.shape[0] == b,
+                   f"fy must be [B={b},Ho,Wo], got {tuple(fy.shape)}")
+    _build.check_tensor("fy", fy, torch.float32, fy.shape)
+    _build.check_tensor("fx", fx, torch.float32, fy.shape)
+
 
 def _check(img, fy, fx):
     _build.require(img.dim() == 4, f"img must be [B,H,W,C], got {tuple(img.shape)}")
-    b, h, w, c = img.shape
-    _build.require(h >= 2 and w >= 2, f"img {tuple(img.shape)}: H and W must be >= 2")
-    _build.require(fy.dim() == 3 and fy.shape[0] == b,
-                   f"fy must be [B={b},Ho,Wo], got {tuple(fy.shape)}")
-    _build.check_tensor("img", img, torch.float32, (b, h, w, c))
-    _build.check_tensor("fy", fy, torch.float32, fy.shape)
-    _build.check_tensor("fx", fx, torch.float32, fy.shape)
+    _check_coords(img.shape, fy, fx)
+    _build.check_tensor("img", img, torch.float32, img.shape)
     return _build.kernel_device(img, fy, fx)
 
 
-def warp_border_fwd(img: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
-    """The forward kernel: img [B,H,W,C] float32 sampled at fy/fx
-    [B,Ho,Wo] float32 -> [B,Ho,Wo,C] float32 (no autograd)."""
+def _plain(img, fy, fx, zeros):
+    return (warp.sample_zeros if zeros else warp.sample_border)(img, fy, fx)
+
+
+def warp_fwd(img: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
+             zeros: bool = False) -> torch.Tensor:
+    """The forward kernel: img [B,H,W,C] float32 sampled at fy/fx [B,Ho,Wo]
+    float32 -> [B,Ho,Wo,C] float32 (no autograd)."""
     dev = _check(img, fy, fx)
     if dev.type == "cpu":
-        return warp.sample_border(img, fy, fx)
+        return _plain(img, fy, fx, zeros)
     b, h, w, c = img.shape
     out = torch.empty((*fy.shape, c), device=dev, dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.warp_border_fwd(img.data_ptr(), fy.data_ptr(), fx.data_ptr(), out.data_ptr(),
-                                  b, h, w, c, fy.shape[1], fy.shape[2], _build.stream(dev))
-    _build.check_error(lib, err, "warp_border_fwd")
-    warp_border.launches += 1
+        err = lib.warp_fwd(img.data_ptr(), fy.data_ptr(), fx.data_ptr(), out.data_ptr(),
+                           b, h, w, c, fy.shape[1], fy.shape[2], int(zeros), _build.stream(dev))
+    _build.check_error(lib, err, "warp_fwd")
+    warp_fwd.launches[_mode(zeros)] += 1
     return out
 
 
-def warp_border_bwd(img, fy, fx, g):
-    """The coordinate gradient of ``warp_border_fwd`` for the output
-    cotangent g [B,Ho,Wo,C] float32 -> (dfy, dfx) [B,Ho,Wo] float32; zero
-    where a coordinate is clamped to the border."""
+def warp_bwd(img, fy, fx, g, zeros: bool = False):
+    """The coordinate gradient of ``warp_fwd`` for the output cotangent g
+    [B,Ho,Wo,C] float32 -> (dfy, dfx) [B,Ho,Wo] float32; in border mode
+    zero where a coordinate is clamped to the border."""
     dev = _check(img, fy, fx)
     _build.check_tensor("g", g, torch.float32, (*fy.shape, img.shape[3]))
     _build.require(g.device == dev, "g lies on another device")
     if dev.type == "cpu":
         fy_, fx_ = fy.detach().requires_grad_(), fx.detach().requires_grad_()
         with torch.enable_grad():
-            out = warp.sample_border(img.detach(), fy_, fx_)
+            out = _plain(img.detach(), fy_, fx_, zeros)
         return torch.autograd.grad(out, (fy_, fx_), g)
     b, h, w, c = img.shape
     dfy = torch.empty_like(fy)
     dfx = torch.empty_like(fx)
     lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.warp_border_bwd(img.data_ptr(), fy.data_ptr(), fx.data_ptr(), g.data_ptr(),
-                                  dfy.data_ptr(), dfx.data_ptr(), b, h, w, c,
-                                  fy.shape[1], fy.shape[2], _build.stream(dev))
-    _build.check_error(lib, err, "warp_border_bwd")
-    warp_border_bwd.launches += 1
+        err = lib.warp_bwd(img.data_ptr(), fy.data_ptr(), fx.data_ptr(), g.data_ptr(),
+                           dfy.data_ptr(), dfx.data_ptr(), b, h, w, c,
+                           fy.shape[1], fy.shape[2], int(zeros), _build.stream(dev))
+    _build.check_error(lib, err, "warp_bwd")
+    warp_bwd.launches[_mode(zeros)] += 1
     return dfy, dfx
 
 
-warp_border_bwd.launches = 0
+def warp_bwd_img(fy, fx, g, img_shape, zeros: bool = False) -> torch.Tensor:
+    """The image gradient of ``warp_fwd`` for the output cotangent g
+    [B,Ho,Wo,C] float32 -> dimg of ``img_shape`` [B,H,W,C] float32: every
+    sample adds g times each corner's bilinear weight to that corner (the
+    corners outside the image dropped in zeros mode)."""
+    _build.require(len(img_shape) == 4, f"img_shape must be [B,H,W,C], got {tuple(img_shape)}")
+    _check_coords(img_shape, fy, fx)
+    _build.check_tensor("g", g, torch.float32, (*fy.shape, img_shape[3]))
+    dev = _build.kernel_device(fy, fx, g)
+    if dev.type == "cpu":
+        img = torch.zeros(img_shape, dtype=torch.float32, requires_grad=True)
+        with torch.enable_grad():
+            out = _plain(img, fy.detach(), fx.detach(), zeros)
+        return torch.autograd.grad(out, img, g)[0]
+    b, h, w, c = img_shape
+    dimg = torch.empty(tuple(img_shape), device=dev, dtype=torch.float32)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.warp_bwd_img(fy.data_ptr(), fx.data_ptr(), g.data_ptr(), dimg.data_ptr(),
+                               b, h, w, c, fy.shape[1], fy.shape[2], int(zeros),
+                               _build.stream(dev))
+    _build.check_error(lib, err, "warp_bwd_img")
+    warp_bwd_img.launches[_mode(zeros)] += 1
+    return dimg
 
 
-class _WarpBorder(torch.autograd.Function):
+warp_fwd.launches = dict.fromkeys(MODES, 0)
+warp_bwd.launches = dict.fromkeys(MODES, 0)
+warp_bwd_img.launches = dict.fromkeys(MODES, 0)
+
+
+class _WarpSample(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, img, fy, fx):
+    def forward(ctx, img, fy, fx, zeros):
         ctx.save_for_backward(img, fy, fx)
-        return warp_border_fwd(img, fy, fx)
+        ctx.zeros = zeros
+        return warp_fwd(img, fy, fx, zeros)
 
     @staticmethod
     def backward(ctx, g):
         img, fy, fx = ctx.saved_tensors
-        dfy, dfx = warp_border_bwd(img, fy, fx, g.contiguous())
-        return None, dfy, dfx  # the image cotangent is zero
+        g = g.contiguous()
+        dfy, dfx = warp_bwd(img, fy, fx, g, ctx.zeros)
+        # a sampled frame is data: its cotangent is neither needed nor made
+        dimg = (warp_bwd_img(fy, fx, g, img.shape, ctx.zeros)
+                if ctx.needs_input_grad[0] else None)
+        return dimg, dfy, dfx, None
 
 
-def warp_border(img: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor) -> torch.Tensor:
-    """Bilinear border-mode sample of img [B,H,W,C] float32 at pixel
-    coordinates fy/fx [B,Ho,Wo] float32 -> [B,Ho,Wo,C]; differentiable in
-    fy and fx."""
-    return _WarpBorder.apply(img, fy, fx)
-
-
-warp_border.launches = 0
+def warp_sample(img: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
+                zeros: bool = False) -> torch.Tensor:
+    """Bilinear sample of img [B,H,W,C] float32 at pixel coordinates fy/fx
+    [B,Ho,Wo] float32 -> [B,Ho,Wo,C], border or (``zeros``) zeros padding;
+    differentiable in fy, fx and, when it requires a gradient, img."""
+    return _WarpSample.apply(img, fy, fx, bool(zeros))

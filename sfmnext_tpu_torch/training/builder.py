@@ -1,8 +1,9 @@
 """Build the model bundle from Options. Counterpart of
 ``sfmnext_tpu/training/builder.py`` (``build_models`` + ``init_params``)
 for the ``resnet`` backbone: the encoder-decoder, the SQL decoder and, for
-training, the PoseCNN. The separate-ResNet and shared pose nets, the
-rectify and predictive-mask networks are not ported yet.
+training, the PoseCNN and (``--use_rectify_net``) the RectifyNet. The
+separate-ResNet and shared pose nets and the predictive-mask network are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from sfmnext_tpu_torch.models import PoseCNN, ResnetEncoderDecoder, SQLDecoder
+from sfmnext_tpu_torch.models import PoseCNN, RectifyNet, ResnetEncoderDecoder, SQLDecoder
 
 
 @dataclasses.dataclass
@@ -29,12 +30,14 @@ class ModelBundle:
     encoder: nn.Module
     depth: nn.Module
     pose: Optional[nn.Module] = None
+    rectify: Optional[nn.Module] = None
     train: bool = False
     compute_dtype: torch.dtype = torch.float32
 
     def modules(self):
         return {name: m for name, m in
-                (("encoder", self.encoder), ("depth", self.depth), ("pose", self.pose))
+                (("encoder", self.encoder), ("depth", self.depth), ("pose", self.pose),
+                 ("rectify", self.rectify))
                 if m is not None}
 
 
@@ -48,7 +51,8 @@ def compute_dtype(opt) -> torch.dtype:
 def build_models(opt, device, train: bool = False) -> ModelBundle:
     """The bundle on ``device``, initialised from a ``torch.Generator``
     seeded with ``opt.seed`` in the JAX package's order: encoder, depth,
-    pose. ``opt.use_pallas`` routes the SQL decoder through its kernels."""
+    pose, rectify. ``opt.use_pallas`` routes the SQL decoder through its
+    kernels."""
     if opt.backbone != "resnet":
         raise NotImplementedError(
             f"backbone {opt.backbone!r}: the port builds 'resnet' only")
@@ -71,6 +75,8 @@ def build_models(opt, device, train: bool = False) -> ModelBundle:
                     f"{' with stereo' if opt.use_stereo else ''}: the port trains "
                     "with the PoseCNN on monocular frames only")
             modules["pose"] = PoseCNN(opt.num_pose_frames, dtype=dtype)
+            if opt.use_rectify_net:
+                modules["rectify"] = RectifyNet()
     generator = torch.Generator().manual_seed(opt.seed)
     for module in modules.values():
         module.to_empty(device="cpu")

@@ -2,7 +2,8 @@
 ``sfmnext_tpu/training/pipeline.py`` (reference trainer.py:266-549):
 ``predict_poses`` in its PoseCNN batched-pairs branch and ``forward``
 (photometric stack with SSIM or, under ``--no_ssim``, L1 alone;
-min-reprojection with automasking; edge-aware smoothness).
+min-reprojection with automasking, or its ``--avg_reprojection`` variant;
+edge-aware smoothness). The indoor pipeline is ``training/indoor.py``.
 
 The batch is the JAX package's: ``color`` and ``color_aug`` [B,F,H,W,3]
 with F following ``opt.all_frame_ids``, ``K`` and ``inv_K`` [B,4,4], all
@@ -34,17 +35,20 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def predict_poses(models, batch, frame_ids, opt):
+def predict_poses(models, batch, frame_ids, opt, pose_frames=None):
     """PoseCNN over the temporally ordered (earlier, later) pairs of the
     target with each source, all pairs in one batched forward.
 
+    ``pose_frames`` [B,F,H,W,3] replaces ``batch["color_aug"]`` as the
+    net's input (the indoor pipeline feeds the raw target and the rectified
+    references, trainer_indoor.py:439-444).
     Returns {frame_id: (axisangle [B,3], translation [B,3], invert)}; a
     past frame's transform is inverted (trainer.py:324-331).
     """
     if opt.pose_model_type != "posecnn" or opt.num_pose_frames != 2:
         raise NotImplementedError(
             "the port predicts poses with the PoseCNN on frame pairs only")
-    color_aug = batch["color_aug"]
+    color_aug = batch["color_aug"] if pose_frames is None else pose_frames
     srcs = [(idx, f_i) for idx, f_i in enumerate(frame_ids[1:], start=1) if f_i != "s"]
     pairs = [
         torch.cat([color_aug[:, idx], color_aug[:, 0]] if f_i < 0
@@ -60,15 +64,17 @@ def predict_poses(models, batch, frame_ids, opt):
     }
 
 
-def forward(models, batch, opt, noise=None):
+def forward(models, batch, opt, generator=None):
     """Depth, poses, warps and losses of one batch.
 
     Args:
       models: a training ``ModelBundle``.
       batch: the tensors described in the module docstring.
       opt: Options.
-      noise: tie-break noise for the identity losses, [1,H,W,n_sources]
-        (the JAX package draws 1e-5 * N(0,1) there), or None.
+      generator: a ``torch.Generator`` on the batch's device for the
+        identity losses' tie-break noise (1e-5 * N(0,1)), drawn in each
+        route's JAX shape: [1,H,W,n_sources] into the fused min,
+        [1,H,W,1] under ``--avg_reprojection``; None adds none.
     Returns:
       (total loss, {"outputs", "metrics"}); BatchNorm running statistics
       update in place.
@@ -113,19 +119,19 @@ def forward(models, batch, opt, noise=None):
     use_ssim = not opt.no_ssim
     fused = use_ssim and opt.use_pallas
     automasking = not opt.disable_automasking
-    if fused and automasking and opt.avg_reprojection:
-        raise NotImplementedError(
-            "--avg_reprojection needs the identity stack without the fused min, TPU "
-            "kernel #8 (ssim_kernel.py _call_fwd_only), which is not ported yet")
-    if fused and automasking:
+    if fused and automasking and not opt.avg_reprojection:
         # the SSIM stacks, the identity stack, the noise and the min in the
         # kernels; the identities' maps never reach device memory
+        noise = None if generator is None else L.tiebreak_noise(
+            generator, (1, h, w, len(ident_srcs)))
         to_optimise, automask = ssim_kernel.reprojection_min(
             warped_srcs, ident_srcs, target, noise, opt.ssim_weight, ldt)
     else:
         ident = None
-        if fused:  # --disable_automasking: no identity stack
+        if fused:  # the maps in the kernels, the min (averaged or not) here
             reproj = ssim_kernel.reprojection_losses(warped_srcs, target, opt.ssim_weight, ldt)
+            if automasking:
+                ident = ssim_kernel.identity_losses(ident_srcs, target, opt.ssim_weight, ldt)
         else:
             target_l = target.to(ldt)
             tstats = L.ssim_target_stats(target_l) if use_ssim else None
@@ -140,7 +146,7 @@ def forward(models, batch, opt, noise=None):
                 with torch.no_grad():
                     ident = stack(ident_srcs)
         to_optimise, automask = L.min_reprojection_loss(
-            [reproj], [ident] if ident is not None else None, noise=noise,
+            [reproj], [ident] if ident is not None else None, generator=generator,
             avg_reprojection=opt.avg_reprojection,
         )
     if automask is not None:

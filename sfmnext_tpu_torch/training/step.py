@@ -1,11 +1,12 @@
 """Optimizer and train step. Counterpart of ``sfmnext_tpu/training/step.py``.
 
 Adam(lr, b1 0.9, b2 0.999, eps 1e-8) with the JAX package's step schedule
-(one decay by 0.1 after ``scheduler_step_size`` epochs, trainer.py:128-135)
-and ``--diff_lr`` (the pose net at a tenth of the rate), and on-device
-augmentation (``augment=True``: the flip and the ColorJitter kernel).
-Gradient accumulation (``--accumulation_steps``) is not ported yet and
-raises.
+(one decay by 0.1 after ``scheduler_step_size`` epochs, trainer.py:128-135),
+``--diff_lr`` (the pose and rectify nets at a tenth of the rate),
+gradient accumulation over ``--accumulation_steps`` micro-steps with
+``optax.MultiSteps`` semantics (trainer_indoor.py:295-307), the outdoor or
+indoor pipeline (``select_pipeline``), and on-device augmentation
+(``augment=True``: the flip and the ColorJitter kernel).
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ from sfmnext_tpu_torch.training.pipeline import forward
 
 def make_optimizer(opt, models, steps_per_epoch: int):
     """(torch.optim.Adam, its step-LR scheduler) over the bundle's
-    parameters; call the scheduler once after every optimizer step."""
-    if opt.accumulation_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
+    parameters; call the scheduler once after every optimizer step (with
+    accumulation: every ``accumulation_steps`` micro-steps, as
+    ``optax.MultiSteps`` advances its inner schedule)."""
     groups = [
         {"params": list(m.parameters()),
-         "lr": opt.learning_rate * (0.1 if opt.diff_lr and name == "pose" else 1.0)}
+         "lr": opt.learning_rate * (0.1 if opt.diff_lr and name in ("pose", "rectify") else 1.0)}
         for name, m in models.modules().items()
     ]
     adam = torch.optim.Adam(groups, lr=opt.learning_rate, betas=(0.9, 0.999), eps=1e-8)
@@ -33,23 +34,78 @@ def make_optimizer(opt, models, steps_per_epoch: int):
     return adam, scheduler
 
 
+class Accumulation:
+    """``optax.MultiSteps(every_k_schedule=every)`` over a torch optimizer:
+    the gradients of ``every`` micro-steps are averaged as optax does, by a
+    running mean (acc += (g - acc) / (n + 1) after micro-step n), and only
+    then do Adam and the schedule take a step; the parameters do not move
+    before it. ``every=1`` is a plain step."""
+
+    def __init__(self, optimizer, scheduler, every: int = 1):
+        if every < 1:
+            raise ValueError(f"accumulation_steps must be >= 1, got {every}")
+        self.optimizer, self.scheduler, self.every = optimizer, scheduler, every
+        self.params = [p for group in optimizer.param_groups for p in group["params"]]
+        self.micro_step = 0
+        self._acc = None
+
+    def zero_grad(self) -> None:
+        """Before a micro-step's backward: the gradients start from None,
+        the running mean of the cycle's earlier micro-steps set aside."""
+        if self.micro_step > 0:
+            self._acc = [p.grad for p in self.params]
+        for p in self.params:
+            p.grad = None
+
+    def step(self) -> bool:
+        """After a micro-step's backward; True when the parameters moved."""
+        if self._acc is not None:
+            with torch.no_grad():
+                for p, acc in zip(self.params, self._acc):
+                    if acc is not None:
+                        g = torch.zeros_like(acc) if p.grad is None else p.grad
+                        p.grad = acc + (g - acc) / (self.micro_step + 1)
+            self._acc = None
+        self.micro_step += 1
+        if self.micro_step < self.every:
+            return False
+        self.micro_step = 0
+        self.optimizer.step()
+        self.scheduler.step()
+        return True
+
+
+def select_pipeline(opt):
+    """The outdoor (trainer.py) or indoor (trainer_indoor.py) forward, as
+    the JAX package picks it (step.py:85-99)."""
+    if (opt.use_rectify_net or opt.use_photo_geo_loss or opt.use_improved_mini_reproj_loss
+            or opt.dataset in ("nyu_raw", "mc_dataset", "mc_mini_dataset")):
+        from sfmnext_tpu_torch.training.indoor import forward_indoor
+
+        return forward_indoor
+    return forward
+
+
 def make_train_step(opt, models, optimizer, scheduler, augment: bool = False):
     """The train step: ``step(batch, generator=None) -> metrics``.
 
     With ``augment=True`` it first flips and colour-jitters the batch on
     its device (``data/augment.augment_batch``, no flip for ``nyu_raw``),
-    drawing from the generator, which is then required. With a
-    ``torch.Generator`` on the batch's device it draws the identity-loss
-    tie-break noise (1e-5 * N(0,1), [1,H,W,n_sources]); without one it adds
-    none. Then it runs forward and backward, updates the parameters (and,
-    in the forward, the BatchNorm running statistics), and steps the
-    schedule. Metrics stay on the device (no sync): the losses, and the
+    drawing from the generator, which is then required. A
+    ``torch.Generator`` on the batch's device also draws the identity-loss
+    tie-break noise (1e-5 * N(0,1), in each loss route's shape); without
+    one the step adds none. Then it runs the forward of ``select_pipeline``
+    and the backward, and, on every ``opt.accumulation_steps``-th call,
+    averages the accumulated gradients, updates the parameters and steps
+    the schedule (the BatchNorm running statistics update in every
+    forward). Metrics stay on the device (no sync): the losses, and the
     full-resolution depth under ``"depth"``. Turns TF32 off, so float32
     products stay float32.
     """
     disable_tf32()
-    n_sources = len(opt.all_frame_ids) - 1
+    forward_fn = select_pipeline(opt)
     allow_flip = opt.dataset != "nyu_raw"  # indoor NYU trains without flips
+    accumulation = Accumulation(optimizer, scheduler, opt.accumulation_steps)
 
     def train_step(batch, generator=None):
         if augment:
@@ -57,16 +113,10 @@ def make_train_step(opt, models, optimizer, scheduler, augment: bool = False):
                 raise ValueError("augment=True draws the flip and the jitter from a "
                                  "torch.Generator; pass one")
             batch = augment_batch(batch, generator, allow_flip)
-        noise = None
-        if generator is not None:
-            _, _, h, w, _ = batch["color"].shape
-            noise = 1e-5 * torch.randn((1, h, w, n_sources), generator=generator,
-                                       device=batch["color"].device)
-        optimizer.zero_grad(set_to_none=True)
-        total, aux = forward(models, batch, opt, noise)
+        accumulation.zero_grad()
+        total, aux = forward_fn(models, batch, opt, generator)
         total.backward()
-        optimizer.step()
-        scheduler.step()
+        accumulation.step()
         metrics = {k: v.detach() for k, v in aux["metrics"].items()}
         metrics["depth"] = aux["outputs"]["depth"].detach()
         return metrics

@@ -25,8 +25,9 @@ def _to_torch(sd) -> Dict[str, torch.Tensor]:
 
 def from_jax_variables(variables) -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX ``{"params", "batch_stats"}`` (arrays or numpy) -> the port's
-    state dicts ``{"encoder", "depth"[, "pose"]}``, BatchNorm running
-    statistics included; ``"pose"`` when the tree holds a PoseCNN."""
+    state dicts ``{"encoder", "depth"[, "pose"][, "rectify"]}``, BatchNorm
+    running statistics included; ``"pose"`` when the tree holds a PoseCNN,
+    ``"rectify"`` when it holds a RectifyNet."""
     params, stats = variables["params"], variables["batch_stats"]
     out = {
         "encoder": _to_torch(torch_export.export_resnet_encoder_decoder(
@@ -35,6 +36,9 @@ def from_jax_variables(variables) -> Dict[str, Dict[str, torch.Tensor]]:
     }
     if "pose" in params:
         out["pose"] = _to_torch(torch_export.export_pose_cnn(params["pose"]))
+    if "rectify" in params:
+        out["rectify"] = _to_torch(torch_export.export_rectify_net(
+            params["rectify"], stats["rectify"]))
     return out
 
 

@@ -3,7 +3,7 @@ state-dict keys, in numpy only.
 
 The port's own copy of the maps it needs from
 ``sfmnext_tpu/utils/torch_export.py`` (ResNet encoder-decoder, SQL decoder,
-PoseCNN), so that loading JAX-trained weights imports nothing of the JAX
+PoseCNN, RectifyNet), so that loading JAX-trained weights imports nothing of the JAX
 package. The trees are nested dicts of arrays (anything ``np.asarray``
 takes); flax's ``HWIO`` convolution kernels become ``OIHW`` and dense
 kernels are transposed.
@@ -37,29 +37,33 @@ def _put_bn(sd, dst, pnode, snode):
     sd[dst + ".running_var"] = np.asarray(snode["var"])
 
 
-def export_resnet_encoder_decoder(params, batch_stats) -> Dict[str, np.ndarray]:
-    """ResnetEncoderDecoder tree -> reference state-dict keys."""
-    sd: Dict[str, np.ndarray] = {}
-    enc_p, enc_s = params["encoder"], batch_stats["encoder"]
-    _put_conv(sd, "encoder.encoder.conv1", enc_p["conv1"])
-    _put_bn(sd, "encoder.encoder.bn1", enc_p["bn1"]["BatchNorm_0"],
-            enc_s["bn1"]["BatchNorm_0"])
-    for name, blk in enc_p.items():
+def _put_resnet(sd, prefix, params, batch_stats) -> None:
+    """A ResNetEncoder tree under torchvision's names after ``prefix``."""
+    _put_conv(sd, prefix + "conv1", params["conv1"])
+    _put_bn(sd, prefix + "bn1", params["bn1"]["BatchNorm_0"],
+            batch_stats["bn1"]["BatchNorm_0"])
+    for name, blk in params.items():
         if not name.startswith("layer"):
             continue
         stage, idx = name.replace("layer", "").split("_")
-        dst = f"encoder.encoder.layer{stage}.{idx}"
+        dst = f"{prefix}layer{stage}.{idx}"
         for c in ("conv1", "conv2", "conv3"):
             if c in blk:
                 _put_conv(sd, f"{dst}.{c}", blk[c])
         for b in ("bn1", "bn2", "bn3"):
             if b in blk:
                 _put_bn(sd, f"{dst}.{b}", blk[b]["BatchNorm_0"],
-                        enc_s[name][b]["BatchNorm_0"])
+                        batch_stats[name][b]["BatchNorm_0"])
         if "down_conv" in blk:
             _put_conv(sd, f"{dst}.downsample.0", blk["down_conv"])
             _put_bn(sd, f"{dst}.downsample.1", blk["down_bn"]["BatchNorm_0"],
-                    enc_s[name]["down_bn"]["BatchNorm_0"])
+                    batch_stats[name]["down_bn"]["BatchNorm_0"])
+
+
+def export_resnet_encoder_decoder(params, batch_stats) -> Dict[str, np.ndarray]:
+    """ResnetEncoderDecoder tree -> reference state-dict keys."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_resnet(sd, "encoder.encoder.", params["encoder"], batch_stats["encoder"])
 
     dec_p, dec_s = params["decoder"], batch_stats["decoder"]
     _put_conv(sd, "decoder.conv2", dec_p["conv2"]["Conv_0"])
@@ -124,4 +128,17 @@ def export_pose_cnn(params) -> Dict[str, np.ndarray]:
     for i in range(7):
         _put_conv(sd, f"net.{i}", params[f"conv{i}"]["Conv_0"])
     _put_conv(sd, "pose_conv", params["pose_conv"]["Conv_0"])
+    return sd
+
+
+def export_rectify_net(params, batch_stats) -> Dict[str, np.ndarray]:
+    """RectifyNet tree -> reference ``rectify.pth`` keys
+    (networks/rectify_net.py: ``encoder.encoder.*``,
+    ``decoder.conv_squeeze``, ``decoder.convs_pose.<i>``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_resnet(sd, "encoder.encoder.", params["encoder"], batch_stats["encoder"])
+    dec = params["decoder"]
+    _put_conv(sd, "decoder.conv_squeeze", dec["squeeze"]["Conv_0"])
+    for i in range(3):
+        _put_conv(sd, f"decoder.convs_pose.{i}", dec[f"pose_{i}"]["Conv_0"])
     return sd

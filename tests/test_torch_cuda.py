@@ -15,8 +15,9 @@ backbone, which the port does not build) round where their plain versions
 round and sum in another order: each output within 1e-2 of its largest
 value, as tests/test_torch_sql_kernel.py holds the plain versions to the
 Pallas kernels. The warp kernels compute the plain version's float32
-arithmetic (contracted into FMAs): outputs and coordinate gradients to
-1e-5 of their largest value.
+arithmetic (contracted into FMAs), in border and zeros padding: outputs,
+coordinate and image gradients to 1e-5 of their largest value (the image
+gradient adds with float32 atomics, in another order on every run).
 
 The SSIM kernels (flagship B=8, 320x1024, 2 warped and 2 identity
 sources; ragged shapes with H, W off the 16x32 tile, H = 4, 3 sources)
@@ -152,9 +153,12 @@ def test_depth_bwd_kernel_matches_plain(dev, shape):
         _assert_scaled(a, w, 1e-2)
 
 
-@pytest.mark.parametrize("shape", [(8, 320, 1024, 3), (2, 37, 53, 3), (1, 2, 2, 1)], ids=str)
-def test_warp_kernels_match_plain(dev, shape):
+@pytest.mark.parametrize("zeros", [False, True], ids=["border", "zeros"])
+@pytest.mark.parametrize("shape", [(8, 320, 1024, 3), (8, 288, 384, 1), (2, 37, 53, 3),
+                                   (1, 2, 2, 1)], ids=str)
+def test_warp_kernels_match_plain(dev, shape, zeros):
     b, h, w, c = shape
+    mode = "zeros" if zeros else "border"
     gen = torch.Generator(device=dev).manual_seed(7)
     img = torch.rand(b, h, w, c, device=dev, generator=gen)
     base_y, base_x = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
@@ -163,19 +167,27 @@ def test_warp_kernels_match_plain(dev, shape):
     # near-identity with a margin past every border
     fy = base_y + 8 * (torch.rand(b, h, w, device=dev, generator=gen) - 0.5) * 2
     fx = base_x + 40 * (torch.rand(b, h, w, device=dev, generator=gen) - 0.5) * 2
+    # none exactly on the border, where the kernel's strict border mask
+    # (warp_kernel.py:246-253) and autograd's clamp give different gradients
+    fy = torch.where((fy == 0) | (fy == h - 1), fy + 0.25, fy)
+    fx = torch.where((fx == 0) | (fx == w - 1), fx + 0.25, fx)
     gout = torch.randn(b, h, w, c, device=dev, generator=gen)
-    before = (warp_kernel.warp_border.launches, warp_kernel.warp_border_bwd.launches)
-    out = warp_kernel.warp_border_fwd(img, fy, fx)
-    dfy, dfx = warp_kernel.warp_border_bwd(img, fy, fx, gout)
+    kernels = (warp_kernel.warp_fwd, warp_kernel.warp_bwd, warp_kernel.warp_bwd_img)
+    before = [fn.launches[mode] for fn in kernels]
+    out = warp_kernel.warp_fwd(img, fy, fx, zeros)
+    dfy, dfx = warp_kernel.warp_bwd(img, fy, fx, gout, zeros)
+    dimg = warp_kernel.warp_bwd_img(fy, fx, gout, img.shape, zeros)
     torch.cuda.synchronize()
-    assert (warp_kernel.warp_border.launches, warp_kernel.warp_border_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [fn.launches[mode] for fn in kernels] == [n + 1 for n in before]
+    img_p = img.clone().requires_grad_()
     fy_p, fx_p = fy.clone().requires_grad_(), fx.clone().requires_grad_()
-    want = warp.sample_border(img, fy_p, fx_p)
-    want_dfy, want_dfx = torch.autograd.grad(want, (fy_p, fx_p), gout)
+    want = (warp.sample_zeros if zeros else warp.sample_border)(img_p, fy_p, fx_p)
+    want_dimg, want_dfy, want_dfx = torch.autograd.grad(want, (img_p, fy_p, fx_p), gout)
     _assert_scaled(out, want.detach(), 1e-5)
     _assert_scaled(dfy, want_dfy, 1e-5)
     _assert_scaled(dfx, want_dfx, 1e-5)
+    # the image gradient sums with atomics, in another order on every run
+    _assert_scaled(dimg, want_dimg, 1e-5)
 
 
 def test_fused_ops_carry_gradients_on_the_card(dev):

@@ -143,10 +143,7 @@ def test_sql_decoder_bf16_matches_jax_pallas():
     jax_model = JaxSQLDecoder(**SQL_KW, dtype=jnp.bfloat16, use_pallas=True)
     with pltpu.force_tpu_interpret_mode():
         expect = jax_model.apply({"params": params}, feats)["disp0"]
-    # oneDNN's bf16 convolution miscomputes k == stride patchify convs at
-    # 16 channels on the CPU (errors as large as the outputs); the native
-    # CPU kernel is right, and the card runs cuDNN
-    with torch.inference_mode(), torch.backends.mkldnn.flags(enabled=False):
+    with torch.inference_mode():
         got = _port_sql_decoder(params, torch.bfloat16)(
             torch.from_numpy(feats).permute(0, 3, 1, 2)
         )["disp0"]

@@ -8,8 +8,8 @@
   * the port's CLI writes both output images;
   * the port imports neither JAX nor the JAX package, in its source or at
     run time: serving (``SQLdepth``) and a training step with the SSIM
-    loss and on-device augmentation run in a subprocess with none of them
-    in ``sys.modules``;
+    loss and on-device augmentation run, and the indoor pipeline imports,
+    in a subprocess with none of them in ``sys.modules``;
   * its own copy of the options matches the JAX package's.
 """
 
@@ -76,8 +76,8 @@ def test_cli_writes_depth_png_and_colormap(tmp_path):
 
 
 def test_port_runs_without_jax():
-    """Serving, and one augmented training step with the SSIM loss, import
-    nothing of JAX or the JAX package."""
+    """Serving, one augmented training step with the SSIM loss and the
+    indoor pipeline import nothing of JAX or the JAX package."""
     script = (
         "import sys, types, numpy as np, torch\n"
         "from sfmnext_tpu_torch.config import parse_options\n"
@@ -102,6 +102,7 @@ def test_port_runs_without_jax():
         "         if k != 'depth_gt'}\n"
         "loss = float(step(batch, torch.Generator().manual_seed(0))['loss'])\n"
         "assert np.isfinite(loss), loss\n"
+        "import sfmnext_tpu_torch.training.indoor\n"
         "loaded = [m for m in sys.modules\n"
         "          if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sfmnext_tpu')]\n"
         "assert not loaded, loaded\n"

@@ -24,9 +24,12 @@ dropout modules in eval mode) and so is the tie-break noise
     ``--diff_lr``, to 1e-6 relative;
   * the other loss routes (``--disable_automasking`` through
     ``ssim_kernel.reprojection_losses``, ``--no_ssim``, ``--avg_reprojection``
-    without automasking) give the plain route's loss (``use_pallas`` off),
-    and ``--avg_reprojection`` with automasking, which needs TPU kernel #8,
-    raises;
+    with automasking through ``reprojection_losses`` and
+    ``identity_losses``, and without it) give the plain route's loss
+    (``use_pallas`` off);
+  * the tie-break noise is drawn in each route's JAX shape: [1,H,W,2] into
+    the fused min, [1,H,W,1] (one identity column) after
+    ``--avg_reprojection`` averages the identity maps;
   * ``make_train_step(augment=True)`` takes a finite step with a generator
     and raises without one.
 """
@@ -45,6 +48,7 @@ from sfmnext_tpu.training import pipeline as jax_pipeline
 from sfmnext_tpu.training.builder import build_models as jax_build_models, init_params
 from sfmnext_tpu.training.step import make_optimizer as jax_make_optimizer
 from sfmnext_tpu_torch.config import parse_options
+from sfmnext_tpu_torch.ops import losses
 from sfmnext_tpu_torch.training import pipeline
 from sfmnext_tpu_torch.training.builder import build_models
 from sfmnext_tpu_torch.training.step import make_optimizer, make_train_step
@@ -187,7 +191,7 @@ def _batch():
             if k != "depth_gt"}
 
 
-@pytest.mark.parametrize("flags", [["--disable_automasking"], ["--no_ssim"],
+@pytest.mark.parametrize("flags", [["--disable_automasking"], ["--no_ssim"], ["--avg_reprojection"],
                                    ["--avg_reprojection", "--disable_automasking"]], ids=" ".join)
 def test_loss_routes_match_the_plain_route(step, flags):
     totals = []
@@ -198,10 +202,26 @@ def test_loss_routes_match_the_plain_route(step, flags):
     np.testing.assert_allclose(totals[0], totals[1], rtol=1e-6)
 
 
-def test_avg_reprojection_with_automasking_raises(step):
-    opt = parse_options(ARGS + ["--avg_reprojection"])
-    with pytest.raises(NotImplementedError, match="#8"):
-        pipeline.forward(_port_models(step["variables"], opt), _batch(), opt)
+def test_avg_reprojection_with_automasking_raises(step, monkeypatch):
+    """``--avg_reprojection`` with automasking runs (on the fused route,
+    identity maps from ``identity_losses``) and draws the noise for one
+    identity column, where the fused min draws one a source."""
+    drawn = []
+    draw = losses.tiebreak_noise
+
+    def recorded(generator, shape):
+        noise = draw(generator, shape)
+        drawn.append(tuple(noise.shape))
+        return noise
+
+    monkeypatch.setattr(losses, "tiebreak_noise", recorded)
+    models = _port_models(step["variables"], step["opt"])
+    for flags, want in (([], (1, 64, 96, 2)), (["--avg_reprojection"], (1, 64, 96, 1))):
+        drawn.clear()
+        with torch.no_grad():
+            total, _ = pipeline.forward(models, _batch(), parse_options(ARGS + flags),
+                                        torch.Generator().manual_seed(0))
+        assert drawn == [want] and np.isfinite(total.item()), (flags, drawn)
 
 
 def test_augmented_step_needs_a_generator():

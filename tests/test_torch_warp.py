@@ -4,12 +4,12 @@
     mode, ``warp_frame``) against ``sfmnext_tpu.ops.geometry`` and
     ``sfmnext_tpu.ops.warp`` in float32: the same arithmetic, to 1e-5
     (pixel coordinates up to ~100 carry float32 rounding of ~1e-5);
-  * ``ops/warp_kernel.warp_border``, whose CPU path is the kernels' plain
-    version, against ``warp_border_pallas`` in interpret mode at
-    tests/test_pallas_warp.py's first shape and near-identity coordinates,
-    with a unit-scale cotangent: output and coordinate gradients to 1e-5,
-    that file's forward tolerance; the source image gets no gradient on
-    either side;
+  * ``ops/warp_kernel.warp_sample`` in border mode on a frame that needs
+    no gradient, whose CPU path is the kernels' plain version, against
+    ``warp_border_pallas`` in interpret mode at tests/test_pallas_warp.py's
+    first shape and near-identity coordinates, with a unit-scale
+    cotangent: output and coordinate gradients to 1e-5, that file's
+    forward tolerance; the source image gets no gradient on either side;
   * the wrapper's input checks and its launch counters staying 0.
 """
 
@@ -128,17 +128,16 @@ def test_warp_border_matches_pallas_interpret():
         expect = warp_border_pallas(img, fy, fx)
         expect_grads = jax.grad(loss, argnums=(0, 1, 2))(img, fy, fx)
 
-    img_t = torch.from_numpy(img).requires_grad_()
     fy_t, fx_t = (torch.from_numpy(a).requires_grad_() for a in (fy, fx))
-    got = warp_kernel.warp_border(img_t, fy_t, fx_t)
+    got = warp_kernel.warp_sample(torch.from_numpy(img), fy_t, fx_t)
     (got * torch.from_numpy(cot)).sum().backward()
     _close(got.detach(), expect, 1e-5)
-    assert img_t.grad is None and not np.asarray(expect_grads[0]).any()
+    assert not np.asarray(expect_grads[0]).any()
     _close(fy_t.grad, expect_grads[1], 1e-5)
     _close(fx_t.grad, expect_grads[2], 1e-5)
     # the backward launcher's CPU path gives the same coordinate gradient
-    dfy, dfx = warp_kernel.warp_border_bwd(torch.from_numpy(img), torch.from_numpy(fy),
-                                           torch.from_numpy(fx), torch.from_numpy(cot))
+    dfy, dfx = warp_kernel.warp_bwd(torch.from_numpy(img), torch.from_numpy(fy),
+                                    torch.from_numpy(fx), torch.from_numpy(cot))
     _close(dfy, expect_grads[1], 1e-5)
     _close(dfx, expect_grads[2], 1e-5)
 
@@ -156,11 +155,12 @@ def test_warp_wrapper_rejects_what_the_kernels_do_not_take(fault):
     img = torch.rand(2, 8, 12, 3)
     fy, fx = (torch.from_numpy(a) for a in _near_identity_coords(2, 8, 12, 1, 3, 1))
     with pytest.raises(ValueError):
-        warp_kernel.warp_border(*BAD_INPUTS[fault]((img, fy, fx)))
+        warp_kernel.warp_sample(*BAD_INPUTS[fault]((img, fy, fx)))
 
 
 def test_cpu_warps_launch_no_kernel():
     img = torch.rand(1, 8, 12, 3)
     fy, fx = (torch.from_numpy(a).requires_grad_() for a in _near_identity_coords(1, 8, 12, 2, 3, 1))
-    warp_kernel.warp_border(img, fy, fx).sum().backward()
-    assert (warp_kernel.warp_border.launches, warp_kernel.warp_border_bwd.launches) == (0, 0)
+    warp_kernel.warp_sample(img.requires_grad_(), fy, fx).sum().backward()
+    for fn in (warp_kernel.warp_fwd, warp_kernel.warp_bwd, warp_kernel.warp_bwd_img):
+        assert fn.launches == {"border": 0, "zeros": 0}
