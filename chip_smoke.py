@@ -26,11 +26,17 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      sources, jitter on [8,3,320,1024,3]; indoor B=8, 288x384, the SQL ops
      at N=144*192 with 64 bins, the warps on 3 and 1 channels with samples
      past the border) and at ragged ones (an identity equal to a warped
-     source there: it takes the ties), with median times of the kernel,
-     the plain version and, where one PyTorch call computes the same
-     function, that call (library_ms), and each kernel's bound (the larger
-     of its bytes over 3.35 TB/s and its operations over the 989 TFLOP/s
-     bf16 peak, or the 67 TFLOP/s float32 one);
+     source there: it takes the ties), with median device times (a sleep
+     kernel queued ahead of the start event, so no host time counts) of
+     the kernel, the plain version and, where one PyTorch call computes the
+     same function, that call (library_ms, timed in turns with the kernel:
+     kernel, library, library, kernel; the factor printed), and each
+     kernel's bound (the larger of its bytes over 3.35 TB/s and its
+     operations over the 989 TFLOP/s bf16 peak, or the 67 TFLOP/s float32
+     one); the warp forward and coordinate gradient also on the smooth
+     coordinates a step makes (warp_frame's geometry at 8x320x1024, the
+     indoor rotation warp at 8x288x384), and the warp kernels' registers
+     and spills from the build log;
   6. train: the flagship training step (args_files/hisfog/kitti/
      resnet_320x1024.txt: batch 8, 320x1024, ResNet-50, bf16 autocast, SSIM
      weight 0.85, automasking; seeded weights, a fixed synthetic batch,
@@ -81,8 +87,8 @@ from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.data import augment
 from sfmnext_tpu_torch.data.synthetic import make_batch
 from sfmnext_tpu_torch.device import cuda_device, disable_tf32
-from sfmnext_tpu_torch.ops import (_build, jitter_kernel, sql_attention, sql_kernel, ssim_kernel,
-                                   warp, warp_kernel)
+from sfmnext_tpu_torch.ops import (_build, geometry, jitter_kernel, sql_attention, sql_kernel,
+                                   ssim_kernel, warp, warp_kernel)
 from sfmnext_tpu_torch.sql_depth import SQLdepth
 from sfmnext_tpu_torch.training import pipeline
 from sfmnext_tpu_torch.training.builder import build_models
@@ -101,6 +107,7 @@ SUMMARY_TOL = dict(rtol=0.0, atol=2e-2)
 DEPTH_TOL = dict(rtol=2e-2, atol=2e-2)
 FUSED_TOL = dict(rtol=2e-2, atol=5e-2)  # fused vs unfused decoder
 TIMING_RUNS = 25
+SLEEP_CYCLES = 2_000_000  # about 1 ms of the card's clock: longer than a wrapper's host time
 LATENCY_RUNS = 20
 SQL_SOURCE = "sfmnext_tpu_torch/csrc/sql_kernel.cu"
 WARP_SOURCE = "sfmnext_tpu_torch/csrc/warp_kernel.cu"
@@ -259,20 +266,41 @@ def require(cond, msg):
         raise RuntimeError(msg)
 
 
-def median_ms(fn, runs=TIMING_RUNS, warmup=3):
-    """Median device time of fn() over ``runs`` launches (CUDA events)."""
+def device_times(fn, runs=TIMING_RUNS, warmup=3):
+    """Device times of fn() (ms, CUDA events), one a run. A sleep kernel is
+    queued ahead of the start event, so that the host enqueues fn's work
+    while the card sleeps and the events hold the device time alone: on an
+    idle card they would also hold the host time between them (the Python
+    wrapper's checks and the launch), which for a warp kernel of tens of
+    microseconds was most of the reading."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def median_ms(fn, runs=TIMING_RUNS, warmup=3):
+    """Median device time of fn() over ``runs`` launches (CUDA events)."""
+    return statistics.median(device_times(fn, runs, warmup))
+
+
+def turns_ms(kernel, library):
+    """Median times of a kernel and of the library call beside it, taken in
+    turns (kernel, library, library, kernel; ``TIMING_RUNS`` launches a
+    turn), so that both see the same state of the card."""
+    times = {kernel: [], library: []}
+    for fn in (kernel, library, library, kernel):
+        times[fn] += device_times(fn)
+    return statistics.median(times[kernel]), statistics.median(times[library])
 
 
 def kernel_inputs(dev, hw, seed):
@@ -443,6 +471,30 @@ def warp_inputs(dev, b, h, w, c, seed):
     return img, fy, fx, g
 
 
+def step_warp_inputs(dev, zeros, seed=0):
+    """Image, coordinates and cotangent of a warp as a training step makes
+    it, smooth where warp_inputs jitters every pixel: in border padding,
+    warp_frame's geometry at the flagship shape (8x320x1024: the synthetic
+    batch's depth and intrinsics, a frame -1 with a small pose); in zeros
+    padding, the indoor RectifyNet's rotation warp (8x288x384, rotations of
+    about 0.02 rad)."""
+    hw = HW_INDOOR if zeros else HW_TRAIN
+    batch = make_batch(B_TRAIN, *hw, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    small = lambda scale: scale * torch.randn(B_TRAIN, 3, device=dev, generator=gen)
+    if zeros:
+        grid = warp.rotation_grid(small(0.02), torch.from_numpy(batch["K3x3"]).to(dev), *hw)
+    else:
+        depth = torch.from_numpy(batch["depth_gt"]).to(dev)
+        K, inv_K = (torch.from_numpy(batch[k]).to(dev) for k in ("K", "inv_K"))
+        T = geometry.transformation_from_parameters(small(0.005), small(0.1), invert=True)
+        grid = geometry.project_3d(geometry.backproject_depth(depth, inv_K), K, T, *hw)
+    fx, fy = (t.contiguous() for t in warp.unnormalize(grid, *hw))
+    img = torch.from_numpy(batch["color"][:, 1]).to(dev).contiguous()
+    g = torch.randn(img.shape, device=dev, generator=gen)
+    return img, fy, fx, g
+
+
 def plain_warp_grads(plain, img, fy, fx, g, which):
     """Autograd's gradients of the plain sample for the cotangent g, of
     (img, fy, fx)[i] for i in ``which``."""
@@ -520,8 +572,11 @@ def check_training_kernels(dev):
             if main:
                 nbytes, flops = sql_bounds(b, hw[0] * hw[1], q, e, d)[name]
                 bms, by = bound_ms(nbytes, flops)
-                ms, plain_ms = median_ms(kernel), median_ms(plain)
-                lib_ms = median_ms(library[name]) if name in library else None
+                if name in library:
+                    ms, lib_ms = turns_ms(kernel, library[name])
+                else:
+                    ms, lib_ms = median_ms(kernel), None
+                plain_ms = median_ms(plain)
                 results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                                      bound_ms=bms, bound_by=by, library_ms=lib_ms)
                 line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
@@ -544,43 +599,68 @@ WARP_CASES = (
 )
 
 
+def warp_parts(img, fy, fx, g, zeros):
+    """{part: (kernel, plain)} of the three warp kernels on these inputs."""
+    plain = warp.sample_zeros if zeros else warp.sample_border
+    return {
+        "fwd": (lambda: warp_kernel.warp_fwd(img, fy, fx, zeros), lambda: plain(img, fy, fx)),
+        "bwd": (lambda: warp_kernel.warp_bwd(img, fy, fx, g, zeros),
+                lambda: plain_warp_grads(plain, img, fy, fx, g, (1, 2))),
+        "img": (lambda: warp_kernel.warp_bwd_img(fy, fx, g, img.shape, zeros),
+                lambda: plain_warp_grads(plain, img, fy, fx, g, (0,))),
+    }
+
+
+def warp_err(part, mode, shape, kernel, plain_fn):
+    """The kernel's largest error against autograd of the plain sample,
+    held to WARP_SCALED_TOL of the plain values' largest."""
+    got, want = kernel(), plain_fn()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = []
+    for a, x in zip(got, want):
+        require(bool(torch.isfinite(a).all()), f"warp {part} {mode}: non-finite output")
+        err, rel = scaled_err(a, x)
+        errs.append(err)
+        require(rel <= WARP_SCALED_TOL, f"warp {part} ({mode}) disagrees with its "
+                                        f"plain version at {shape}: {err:.4e}")
+    return max(errs)
+
+
+def warp_timing(part, img, fy, fx, g, zeros, kernel):
+    """Kernel and library times in turns, and the bound, of one warp part."""
+    b, hh, ww, c = img.shape
+    n = b * hh * ww
+    work = {"fwd": (4 * n * (2 * c + 2), (10 + 10 * c) * n),
+            "bwd": (4 * n * (2 * c + 4), (12 + 16 * c) * n),
+            "img": (4 * n * (2 * c + 2), (10 + 8 * c) * n)}[part]
+    bms, by = bound_ms(*work, F32_FLOPS)
+    ms, lib_ms = turns_ms(kernel, library_warp(img, fy, fx, g, zeros, part))
+    text = (f"kernel {ms:.4f} ms, library {lib_ms:.4f} ms (factor {ms / lib_ms:.2f}x), bound "
+            f"{bms:.4f} ms ({by}: {work[0] / 1e6:.1f} MB)")
+    return dict(ms=ms, bound_ms=bms, bound_by=by, library_ms=lib_ms), text
+
+
 def check_warp_kernels(dev):
     """Phase 5, the warp kernels: forward, coordinate and image gradient in
     both paddings against autograd of the plain samples, on the flagship
     warps and the indoor ones (3 and 1 channels) and ragged shapes, samples
     past every border; the kernels-line entries timed where ``WARP_CASES``
-    names them, the image gradient at one channel printed beside it."""
+    names them (kernel and library in turns), the image gradient at one
+    channel printed beside it; then the forward and coordinate gradient on
+    the smooth coordinates a step makes (step_warp_inputs), timed alike."""
     results, errs = {}, {}
     for (b, hh, ww, c), timed in WARP_CASES:
         img, fy, fx, g = warp_inputs(dev, b, hh, ww, c, seed=hh + c)
         for zeros in (False, True):
             mode = "zeros" if zeros else "border"
-            plain = warp.sample_zeros if zeros else warp.sample_border
             fwd_name, bwd_name, img_name = timed.get(mode, (None, None, None))
             if (b, c) == (B_TRAIN, 1) and not zeros:
                 img_name = "warp_image_bwd at C=1"
             names = {"fwd": fwd_name, "bwd": bwd_name, "img": img_name}
-            cases = {
-                "fwd": (lambda: warp_kernel.warp_fwd(img, fy, fx, zeros),
-                        lambda: plain(img, fy, fx)),
-                "bwd": (lambda: warp_kernel.warp_bwd(img, fy, fx, g, zeros),
-                        lambda: plain_warp_grads(plain, img, fy, fx, g, (1, 2))),
-                "img": (lambda: warp_kernel.warp_bwd_img(fy, fx, g, img.shape, zeros),
-                        lambda: plain_warp_grads(plain, img, fy, fx, g, (0,))),
-            }
-            for part, (kernel, plain_fn) in cases.items():
-                got, want = kernel(), plain_fn()
-                torch.cuda.synchronize()
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                part_errs = []
-                for a, x in zip(got, want):
-                    require(bool(torch.isfinite(a).all()), f"warp {part} {mode}: non-finite output")
-                    err, rel = scaled_err(a, x)
-                    part_errs.append(err)
-                    require(rel <= WARP_SCALED_TOL, f"warp {part} ({mode}) disagrees with its "
-                                                    f"plain version at {(b, hh, ww, c)}: {err:.4e}")
-                err = max(part_errs)
+            for part, (kernel, plain_fn) in warp_parts(img, fy, fx, g, zeros).items():
+                err = warp_err(part, mode, (b, hh, ww, c), kernel, plain_fn)
                 key = {"fwd": "warp_zeros" if zeros else "warp_border",
                        "bwd": "warp_zeros_bwd" if zeros else "warp_border_bwd",
                        "img": "warp_image_bwd"}[part]
@@ -588,20 +668,23 @@ def check_warp_kernels(dev):
                 line = (f"[train-kernel] warp {part} {mode} {b}x{hh}x{ww}x{c}: max_abs_err "
                         f"{err:.4e} (scaled {WARP_SCALED_TOL})")
                 if names[part]:
-                    n = b * hh * ww
-                    work = {"fwd": (4 * n * (2 * c + 2), (10 + 10 * c) * n),
-                            "bwd": (4 * n * (2 * c + 4), (12 + 16 * c) * n),
-                            "img": (4 * n * (2 * c + 2), (10 + 8 * c) * n)}[part]
-                    bms, by = bound_ms(*work, F32_FLOPS)
-                    ms, plain_ms = median_ms(kernel), median_ms(plain_fn)
-                    lib_ms = median_ms(library_warp(img, fy, fx, g, zeros, part))
+                    entry, text = warp_timing(part, img, fy, fx, g, zeros, kernel)
+                    entry["plain_ms"] = median_ms(plain_fn)
                     if names[part] in KERNELS:
-                        results[names[part]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                                    bound_by=by, library_ms=lib_ms)
-                    line += (f"; {names[part]} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                             f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
-                             f"{work[0] / 1e6:.1f} MB)")
+                        results[names[part]] = entry
+                    line += f"; {names[part]} {text}, plain {entry['plain_ms']:.4f} ms"
                 print(line, flush=True)
+    for zeros in (False, True):
+        mode = "zeros" if zeros else "border"
+        img, fy, fx, g = step_warp_inputs(dev, zeros)
+        where = "rotation warp" if zeros else "warp_frame"
+        for part in ("fwd", "bwd"):
+            kernel, plain_fn = warp_parts(img, fy, fx, g, zeros)[part]
+            err = warp_err(part, mode, tuple(img.shape), kernel, plain_fn)
+            _, text = warp_timing(part, img, fy, fx, g, zeros, kernel)
+            print(f"[train-kernel] warp {part} {mode} {'x'.join(map(str, img.shape))} as a step "
+                  f"makes it ({where}): max_abs_err {err:.4e} (scaled {WARP_SCALED_TOL}); {text}",
+                  flush=True)
     for name, entry in results.items():  # the largest error over every shape and mode
         entry["max_abs_err"] = errs[name]
     return results

@@ -117,18 +117,26 @@ def _intrinsics_3x3_points(depth: torch.Tensor, K3: torch.Tensor) -> torch.Tenso
     return depth.reshape(b, 1, h * w) * rays
 
 
-def inverse_rotation_warp(img, rot, intrinsics, padding_mode: str = "zeros",
-                          use_kernel: bool = False):
-    """Re-render img [B,H,W,C] as seen after the rotation rot [B,3] (Euler
-    angles) about the camera centre, intrinsics [B,3,3]; the RectifyNet
-    warp (reference layers.py:460-479), align_corners=True."""
-    b, h, w, _ = img.shape
+def rotation_grid(rot, intrinsics, h: int, w: int, dtype=torch.float32):
+    """The normalised grid [B,H,W,2] (align_corners=True) at which a frame
+    of dtype is sampled to re-render it after the rotation rot [B,3] (Euler
+    angles) about the camera centre, intrinsics [B,3,3]."""
+    b = rot.shape[0]
     proj = torch.matmul(intrinsics, geometry.euler_to_mat(rot))
-    ones = torch.ones((b, h, w, 1), dtype=img.dtype, device=img.device)
+    ones = torch.ones((b, h, w, 1), dtype=dtype, device=rot.device)
     cam = geometry._transform(proj, _intrinsics_3x3_points(ones, intrinsics))
     xy = cam[:, :2] / (cam[:, 2:3] + 1e-7)
     pix = xy.reshape(b, 2, h, w).permute(0, 2, 3, 1)
     sx = pix[..., 0] / (w - 1)
     sy = pix[..., 1] / (h - 1)
-    coords = torch.stack([(sx - 0.5) * 2.0, (sy - 0.5) * 2.0], dim=-1)
+    return torch.stack([(sx - 0.5) * 2.0, (sy - 0.5) * 2.0], dim=-1)
+
+
+def inverse_rotation_warp(img, rot, intrinsics, padding_mode: str = "zeros",
+                          use_kernel: bool = False):
+    """Re-render img [B,H,W,C] as seen after the rotation rot [B,3] (Euler
+    angles) about the camera centre, intrinsics [B,3,3]; the RectifyNet
+    warp (reference layers.py:460-479), align_corners=True."""
+    _, h, w, _ = img.shape
+    coords = rotation_grid(rot, intrinsics, h, w, img.dtype)
     return grid_sample(img, coords, padding_mode, align_corners=True, use_kernel=use_kernel)

@@ -13,11 +13,20 @@ image.
   * ``warp_bwd_img`` -> ``warp_bwd_img`` (replaces ``_call_bwd_img`` /
     ``_bwd_img_kernel``), the image gradient.
 
-Each counts its launches per padding mode in ``<wrapper>.launches``
-(``{"border": n, "zeros": n}``). The entry point is ``warp_sample``. The
-plain versions are ``ops/warp.sample_border`` and ``ops/warp.sample_zeros``:
-a CPU tensor takes them in the forward and autograd's gradients of them in
-the backward; a CUDA tensor launches the kernels or raises.
+All three are bound by the bytes they move (float32: the image, the
+coordinates, the cotangent and the outputs, each once). The forward and
+the coordinate gradient take four output pixels a thread (consecutive in
+border padding, 32 apart in zeros padding), the batch on the grid's y axis
+and 32-bit offsets inside one image plane and one output plane, with C = 1
+and 3 compiled in (``csrc/warp_kernel.cu`` says why). So the wrappers
+raise on an image plane of 2^31 floats or more, on an output plane that
+reaches 2^31 floats once rounded up by one block's ``BLOCK_PIXELS``, and
+on more than 65,535 images. Each counts its launches per padding mode in
+``<wrapper>.launches`` (``{"border": n, "zeros": n}``). The entry point is
+``warp_sample``. The plain versions are ``ops/warp.sample_border`` and
+``ops/warp.sample_zeros``: a CPU tensor takes them in the forward and
+autograd's gradients of them in the backward; a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import torch
 from sfmnext_tpu_torch.ops import _build, warp
 
 MODES = ("border", "zeros")
+MAX_BATCH = 65535  # the CUDA grid's y extent
+BLOCK_PIXELS = 512  # output pixels a block of warp_fwd / warp_bwd (kThreads * kPix)
 
 
 def _mode(zeros: bool) -> str:
@@ -34,10 +45,19 @@ def _mode(zeros: bool) -> str:
 
 
 def _check_coords(shape, fy, fx):
+    """The image's shape (a tuple: nothing is allocated) and the coordinates
+    as the kernels take them: the batch on the grid's y axis (at most
+    65,535), 32-bit offsets inside one image plane and one output plane
+    (whose pixel indices run up to one block's pixels past its end before
+    their bounds test)."""
     b, h, w, c = shape
     _build.require(h >= 2 and w >= 2, f"image {tuple(shape)}: H and W must be >= 2")
+    _build.require(b <= MAX_BATCH, f"image {tuple(shape)}: at most {MAX_BATCH} images")
+    _build.require(h * w * c < 2**31, f"image {tuple(shape)}: H*W*C must be below 2^31")
     _build.require(fy.dim() == 3 and fy.shape[0] == b,
                    f"fy must be [B={b},Ho,Wo], got {tuple(fy.shape)}")
+    _build.require((fy.shape[1] * fy.shape[2] + BLOCK_PIXELS) * c < 2**31,
+                   f"output {(*fy.shape, c)}: (Ho*Wo + {BLOCK_PIXELS})*C must be below 2^31")
     _build.check_tensor("fy", fy, torch.float32, fy.shape)
     _build.check_tensor("fx", fx, torch.float32, fy.shape)
 

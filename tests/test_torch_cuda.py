@@ -17,7 +17,11 @@ value, as tests/test_torch_sql_kernel.py holds the plain versions to the
 Pallas kernels. The warp kernels compute the plain version's float32
 arithmetic (contracted into FMAs), in border and zeros padding: outputs,
 coordinate and image gradients to 1e-5 of their largest value (the image
-gradient adds with float32 atomics, in another order on every run).
+gradient adds with float32 atomics, in another order on every run), at the
+steps' shapes and at the layouts the kernels treat apart: C other than 1
+and 3, output planes other than the image's, a ragged tail of pixels, a
+batch of 3 at an odd Ho*Wo (batches starting off a 16-byte boundary),
+coordinates far outside the image, smooth and widely scattered samples.
 
 The SSIM kernels (flagship B=8, 320x1024, 2 warped and 2 identity
 sources; ragged shapes with H, W off the 16x32 tile, H = 4, 3 sources)
@@ -153,25 +157,11 @@ def test_depth_bwd_kernel_matches_plain(dev, shape):
         _assert_scaled(a, w, 1e-2)
 
 
-@pytest.mark.parametrize("zeros", [False, True], ids=["border", "zeros"])
-@pytest.mark.parametrize("shape", [(8, 320, 1024, 3), (8, 288, 384, 1), (2, 37, 53, 3),
-                                   (1, 2, 2, 1)], ids=str)
-def test_warp_kernels_match_plain(dev, shape, zeros):
-    b, h, w, c = shape
+def _check_warp(img, fy, fx, gout, zeros):
+    """Each warp kernel launches once and agrees with autograd of the plain
+    sample: output, coordinate and image gradient to 1e-5 of their largest
+    value."""
     mode = "zeros" if zeros else "border"
-    gen = torch.Generator(device=dev).manual_seed(7)
-    img = torch.rand(b, h, w, c, device=dev, generator=gen)
-    base_y, base_x = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
-                                    torch.arange(w, device=dev, dtype=torch.float32),
-                                    indexing="ij")
-    # near-identity with a margin past every border
-    fy = base_y + 8 * (torch.rand(b, h, w, device=dev, generator=gen) - 0.5) * 2
-    fx = base_x + 40 * (torch.rand(b, h, w, device=dev, generator=gen) - 0.5) * 2
-    # none exactly on the border, where the kernel's strict border mask
-    # (warp_kernel.py:246-253) and autograd's clamp give different gradients
-    fy = torch.where((fy == 0) | (fy == h - 1), fy + 0.25, fy)
-    fx = torch.where((fx == 0) | (fx == w - 1), fx + 0.25, fx)
-    gout = torch.randn(b, h, w, c, device=dev, generator=gen)
     kernels = (warp_kernel.warp_fwd, warp_kernel.warp_bwd, warp_kernel.warp_bwd_img)
     before = [fn.launches[mode] for fn in kernels]
     out = warp_kernel.warp_fwd(img, fy, fx, zeros)
@@ -188,6 +178,77 @@ def test_warp_kernels_match_plain(dev, shape, zeros):
     _assert_scaled(dfx, want_dfx, 1e-5)
     # the image gradient sums with atomics, in another order on every run
     _assert_scaled(dimg, want_dimg, 1e-5)
+
+
+def _off_border(fy, fx, h, w):
+    """None exactly on the border, where the kernel's strict border mask
+    (warp_kernel.py:246-253) and autograd's clamp give different gradients."""
+    fy = torch.where((fy == 0) | (fy == h - 1), fy + 0.25, fy)
+    fx = torch.where((fx == 0) | (fx == w - 1), fx + 0.25, fx)
+    return fy, fx
+
+
+@pytest.mark.parametrize("zeros", [False, True], ids=["border", "zeros"])
+@pytest.mark.parametrize("shape", [(8, 320, 1024, 3), (8, 288, 384, 1), (2, 37, 53, 3),
+                                   (1, 2, 2, 1)], ids=str)
+def test_warp_kernels_match_plain(dev, shape, zeros):
+    b, h, w, c = shape
+    gen = torch.Generator(device=dev).manual_seed(7)
+    img = torch.rand(b, h, w, c, device=dev, generator=gen)
+    base_y, base_x = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                                    torch.arange(w, device=dev, dtype=torch.float32),
+                                    indexing="ij")
+    # near-identity with a margin past every border
+    fy = base_y + 8 * (torch.rand(b, h, w, device=dev, generator=gen) - 0.5) * 2
+    fx = base_x + 40 * (torch.rand(b, h, w, device=dev, generator=gen) - 0.5) * 2
+    fy, fx = _off_border(fy, fx, h, w)
+    gout = torch.randn(b, h, w, c, device=dev, generator=gen)
+    _check_warp(img, fy, fx, gout, zeros)
+
+
+# (B, H, W, C, Ho, Wo, coordinates): the kernels take 4 output pixels a
+# thread (consecutive in border padding, 32 apart in zeros padding), C = 1
+# and 3 as template instances and any other C in a loop, and 16-byte vectors
+# only where 4 consecutive pixels start on a multiple of 4 of the flat pixel
+# index
+WARP_LAYOUTS = {
+    "C=2": (2, 9, 13, 2, 9, 13, "scattered"),
+    "C=4": (2, 9, 13, 4, 9, 13, "scattered"),
+    "C=5, Ho*Wo=35": (1, 5, 7, 5, 5, 7, "scattered"),
+    "Ho*Wo=35, a ragged tail": (2, 5, 7, 3, 5, 7, "scattered"),
+    "HoxWo=17x23 from 40x60": (2, 40, 60, 3, 17, 23, "scattered"),
+    "HoxWo=70x50 from 40x60, C=1": (2, 40, 60, 1, 70, 50, "scattered"),
+    "B=3 at Ho*Wo=143": (3, 11, 13, 3, 11, 13, "smooth"),
+    "B=3 at Ho*Wo=143, C=1": (3, 11, 13, 1, 11, 13, "smooth"),
+    "far, +-1e30": (3, 11, 13, 3, 11, 13, "far"),
+    "far, +-1e30, C=1": (2, 8, 12, 1, 8, 12, "far"),
+    "smooth, 96x160": (2, 96, 160, 3, 96, 160, "smooth"),
+    "wide jitter, 96x160": (2, 96, 160, 3, 96, 160, "wide"),
+}
+
+
+@pytest.mark.parametrize("zeros", [False, True], ids=["border", "zeros"])
+@pytest.mark.parametrize("layout", list(WARP_LAYOUTS))
+def test_warp_kernels_match_plain_on_other_layouts(dev, layout, zeros):
+    b, h, w, c, ho, wo, coords = WARP_LAYOUTS[layout]
+    gen = torch.Generator(device=dev).manual_seed(len(layout))
+    img = torch.rand(b, h, w, c, device=dev, generator=gen)
+    u = lambda: 2 * torch.rand(b, ho, wo, device=dev, generator=gen) - 1
+    if coords == "scattered":  # anywhere in the image and 3 pixels past it
+        fy, fx = (h - 1) / 2 + (h + 5) / 2 * u(), (w - 1) / 2 + (w + 5) / 2 * u()
+    else:
+        ys, xs = torch.meshgrid(torch.arange(ho, device=dev, dtype=torch.float32),
+                                torch.arange(wo, device=dev, dtype=torch.float32),
+                                indexing="ij")
+        dy, dx = (8, 40) if coords == "wide" else (1.5, 2.5)
+        fy, fx = ys + dy * u(), xs + dx * u()
+    if coords == "far":  # some far outside the image, either side
+        far = torch.rand(b, ho, wo, device=dev, generator=gen)
+        fy = torch.where(far < 0.2, torch.full_like(fy, 1e30), fy)
+        fx = torch.where(far > 0.8, torch.full_like(fx, -1e30), fx)
+    fy, fx = _off_border(fy, fx, h, w)
+    gout = torch.randn(b, ho, wo, c, device=dev, generator=gen)
+    _check_warp(img, fy.contiguous(), fx.contiguous(), gout, zeros)
 
 
 def test_fused_ops_carry_gradients_on_the_card(dev):

@@ -10,7 +10,9 @@
     first shape and near-identity coordinates, with a unit-scale
     cotangent: output and coordinate gradients to 1e-5, that file's
     forward tolerance; the source image gets no gradient on either side;
-  * the wrapper's input checks and its launch counters staying 0.
+  * the wrapper's input checks (with the 2^31-float image and output
+    planes of the kernels' 32-bit offsets, from the shapes alone) and its
+    launch counters staying 0.
 """
 
 import jax
@@ -156,6 +158,30 @@ def test_warp_wrapper_rejects_what_the_kernels_do_not_take(fault):
     fy, fx = (torch.from_numpy(a) for a in _near_identity_coords(2, 8, 12, 1, 3, 1))
     with pytest.raises(ValueError):
         warp_kernel.warp_sample(*BAD_INPUTS[fault]((img, fy, fx)))
+
+
+@pytest.mark.parametrize("image, coords", [((1, 2, 2, 2**30), (1, 2, 2)),
+                                           ((1, 2, 2, 2**28), (1, 3, 3)),
+                                           ((1, 2, 2, 2**21), (1, 25, 40))],
+                         ids=["image plane", "output plane", "output plane at the block edge"])
+def test_warp_wrapper_rejects_planes_past_32_bit_offsets(image, coords):
+    """The kernels index one image plane and one output plane with 32-bit
+    offsets: the wrapper raises on H*W*C of 2^31, and on (Ho*Wo + one
+    block's pixels)*C of 2^31, since a thread's pixel index runs up to a
+    block past the plane's end before its bounds test (the last case has
+    Ho*Wo*C below 2^31), from the shapes alone (nothing of that size is
+    allocated)."""
+    fy = fx = torch.zeros(coords)
+    g = torch.zeros(coords + (1,))
+    with pytest.raises(ValueError, match="below 2\\^31"):
+        warp_kernel.warp_bwd_img(fy, fx, g, image)
+
+
+def test_warp_wrapper_takes_planes_up_to_the_32_bit_edge():
+    """Just inside the edge of the case above: (511 + 512) * 2^21 < 2^31."""
+    assert warp_kernel.BLOCK_PIXELS == 512
+    fy = fx = torch.zeros(1, 1, 511)
+    warp_kernel._check_coords((1, 2, 2, 2**21), fy, fx)
 
 
 def test_cpu_warps_launch_no_kernel():

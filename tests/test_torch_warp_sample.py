@@ -6,8 +6,9 @@ package's, on the CPU.
     with its gradients, against ``sfmnext_tpu.ops``, to 1e-5 (pixel
     coordinates up to ~100 carry float32 rounding of ~1e-5);
   * ``ops/warp.grid_sample``'s plain samples, border and zeros padding,
-    both ``align_corners``, one and three channels, with samples outside
-    the image: the output and both cotangents (image and grid) against
+    both ``align_corners``, one to four channels (the kernels compile C =
+    1 and 3 in and loop over any other C), with samples outside the
+    image: the output and both cotangents (image and grid) against
     ``jax.vjp`` of the JAX ``grid_sample`` (its XLA formulation), to 1e-6
     and 1e-5 of the largest value;
   * ``ops/warp_kernel.warp_sample``, whose CPU path is the kernels' plain
@@ -81,7 +82,7 @@ def test_inverse_rotation_warp_and_its_gradients_match_jax():
         _scaled_close(a.grad, e, 1e-5)
 
 
-@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
 @pytest.mark.parametrize("align_corners", [True, False])
 @pytest.mark.parametrize("padding", ["border", "zeros"])
 def test_plain_samples_and_cotangents_match_jax(padding, align_corners, channels):
