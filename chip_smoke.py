@@ -25,8 +25,11 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      steps' shapes (flagship B=8, 320x1024, 2 warped and 2 identity
      sources, jitter on [8,3,320,1024,3]; indoor B=8, 288x384, the SQL ops
      at N=144*192 with 64 bins, the warps on 3 and 1 channels with samples
-     past the border) and at ragged ones (an identity equal to a warped
-     source there: it takes the ties), with median device times (a sleep
+     past the border), at the SQL ops of the resnet18_lite argfile (B=12,
+     N=96*320, Q=120, E=128, D=128) and at ragged ones (an identity equal
+     to a warped source there: it takes the ties), with median device
+     times (the SQL kernels at the flagship and resnet18_lite shapes, their
+     backwards at the indoor one as well; a sleep
      kernel queued ahead of the start event, so no host time counts) of
      the kernel, the plain version and, where one PyTorch call computes the
      same function, that call (library_ms, timed in turns with the kernel:
@@ -35,8 +38,8 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      operations over the 989 TFLOP/s bf16 peak, or the 67 TFLOP/s float32
      one); the warp forward and coordinate gradient also on the smooth
      coordinates a step makes (warp_frame's geometry at 8x320x1024, the
-     indoor rotation warp at 8x288x384), and the warp kernels' registers
-     and spills from the build log;
+     indoor rotation warp at 8x288x384), and every kernel's registers and
+     spills from the build log (phase 2);
   6. train: the flagship training step (args_files/hisfog/kitti/
      resnet_320x1024.txt: batch 8, 320x1024, ResNet-50, bf16 autocast, SSIM
      weight 0.85, automasking; seeded weights, a fixed synthetic batch,
@@ -186,6 +189,10 @@ HW_TRAIN = (320, 1024)
 INDOOR_MICRO_STEPS = 6  # three optimizer steps of --accumulation_steps 2
 HW_INDOOR = (288, 384)
 D_INDOOR = 64
+# the SQL ops of args_files/hisfog/kitti/resnet18_lite_192x640.txt (batch
+# 12, query_nums 120, model_dim 128, dim_out 128) at DecoderBN's half
+# resolution of 192x640: (B, H x W, Q, E, D)
+LITE_SQL = (12, (96, 320), 120, 128, 128)
 # kernel vs plain at the training shapes. The SQL backward kernels round
 # where their plain versions round but sum in another order, so a bf16
 # rounding can fall the other way (bf16 is 2^-8 = 3.9e-3): each output
@@ -508,9 +515,15 @@ def check_training_kernels(dev):
     h, w = HW_TRAIN
     hi, wi = HW_INDOOR
     results = {}
-    for main, b, hw, q, e, d in ((True, B_TRAIN, (h // 2, w // 2), Q, E, D),
-                                 (False, B_TRAIN, (hi // 2, wi // 2), Q, E, D_INDOOR),
-                                 (False, 2, HW_RAGGED, Q, E, D), (False, 2, (30, 50), 120, 56, 100)):
+    every = ("sql_summary", "sql_depth", "sql_summary_bwd", "sql_depth_bwd")
+    # (the kernels timed there, B, H x W, Q, E, D): the flagship step's
+    # decoder (its times go into the kernels line), the indoor one, ragged
+    # shapes, and the resnet18_lite argfile's decoder at the widest E
+    cases = ((every, B_TRAIN, (h // 2, w // 2), Q, E, D),
+             (every[2:], B_TRAIN, (hi // 2, wi // 2), Q, E, D_INDOOR),
+             ((), 2, HW_RAGGED, Q, E, D), ((), 2, (30, 50), 120, 56, 100), (every, *LITE_SQL))
+    for i, (timed, b, hw, q, e, d) in enumerate(cases):
+        main = i == 0
         g = torch.Generator(device=dev).manual_seed(b + q + d)
         feats = torch.randn(b, *hw, e, generator=g, device=dev).to(torch.bfloat16)
         queries = (0.3 * torch.randn(b, q, e, generator=g, device=dev)).to(torch.bfloat16)
@@ -538,7 +551,7 @@ def check_training_kernels(dev):
                               BWD_SCALED_TOL),
         }
         library = {}
-        if main:
+        if timed:
             # one PyTorch call computing the same function (never used by
             # the port): attention with scale 1 over the pixels as keys and
             # values, queries [B,1,Q,E], keys = values = features [B,1,N,E]
@@ -569,7 +582,7 @@ def check_training_kernels(dev):
                             f"Q={q} E={e} D={d}: max_abs_err {err:.4e} ({tol})")
             line = (f"[train-kernel] {name} B={b} N={hw[0] * hw[1]} Q={q} E={e} D={d}: "
                     f"max_abs_err {max(errs):.4e} ({tol})")
-            if main:
+            if name in timed:
                 nbytes, flops = sql_bounds(b, hw[0] * hw[1], q, e, d)[name]
                 bms, by = bound_ms(nbytes, flops)
                 if name in library:
@@ -577,8 +590,9 @@ def check_training_kernels(dev):
                 else:
                     ms, lib_ms = median_ms(kernel), None
                 plain_ms = median_ms(plain)
-                results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                if main:
+                    results[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bms, bound_by=by, library_ms=lib_ms)
                 line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bms:.4f} ms "
                          f"({by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")

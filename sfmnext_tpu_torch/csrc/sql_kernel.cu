@@ -45,29 +45,51 @@
 //    and the exp-weighted sums against the centers reduce across the four
 //    lanes that share a row.
 //
-// The backward passes (E <= 64), at the training slice's shape (B=8,
-// N=81,920, Q=128, E=32, D=128), counting each input read once and each
-// output written once, products at the 989 TFLOP/s bf16 dense peak:
+// The backward passes, at the training slice's shape (B=8, N=81,920,
+// Q=128, E=32, D=128), counting each input read once and each output
+// written once, products at the 989 TFLOP/s bf16 dense peak; any E <= 128
+// (E % 8 == 0), Q <= 128, D <= 128, any N:
 //
 //  * sql_summary_bwd replaces _fq_bwd_kernel (_fq_call_bwd, the VJP of
 //    flash_full_query): dS [B,N,E] bf16 and dQ [B,Q,E] from the cotangent
 //    g [B,Q,E] and the forward's m, z and delta = sum_e g * out. Five
 //    products of 2*B*N*Q*E (energy, dattn, dQ and the two halves of dS):
 //    26.8 GFLOP, 27 us; reads S and writes dS, 84 MB, 25 us; 84 M exps.
-//    Bounded by the products. Blocks are (chunk of N, b) as in the
-//    forward, each warp holding 16 queries; the energy and dattn tiles stay
-//    in registers. dS reduces over the queries, which the warps split, so
-//    bf16(p) and bf16(de) go through shared memory and the warps split the
-//    [64, E] dS tile instead.
 //  * sql_depth_bwd replaces _bins_bwd_kernel (_bins_call_bwd, the VJP of
 //    flash_bins_depth): dS, dQ, dW [Q,D], db [D] and dc [B,D]. Products:
 //    2*B*N*(3*Q*E + 3*Q*D) = 80.5 GFLOP, 81 us; 87 MB moved, 26 us.
-//    Bounded by the products. Each warp recomputes the energy and logits
-//    of its 16 pixels in registers (as the forward), forms dl and de there
-//    and writes dS; dW and dQ reduce over pixels, so bf16(e), bf16(dl) and
-//    bf16(de) of the block's 64 pixels go to shared memory and the warps
-//    split the [Q,D] and [Q,E] products, each owning its output tiles of a
-//    float32 accumulator in shared memory.
+//
+// Both are bounded by the products, which mma.sync issues from fragments
+// in registers: what holds them back is feeding the tensor cores (shared
+// memory traffic, barriers, too few warps) and, in the bins backward, the
+// registers of a long per-pixel chain beside the [Q,D] sum. The design:
+//
+//  - A block of 8 warps walks its chunk of N in steps of 128 pixels. The
+//    S tile of the next step is in flight (cp.async, 16 bytes a copy)
+//    while the current one is multiplied; where two tiles do not fit in
+//    shared memory (the bins backward at E > 96 and D > 64) the load
+//    waits instead.
+//  - Phase 1, per pixel: each warp takes 16 pixels against every query,
+//    so the products that reduce over the queries (dS, and in the bins
+//    head the logits and dl -> de) chain in registers: the accumulator of
+//    one m16n8k16 product, rounded to bf16, is the A fragment of the next
+//    (the Pallas kernels' _bf16 before each product). Of the [16, D]
+//    logits only one query tile of energies is live at a time.
+//  - Phase 2, per query: the products that reduce over the pixels (dQ,
+//    and dW) read the step's bf16 tiles (de; e, dl) that phase 1 staged in
+//    shared memory with stmatrix, each warp owning 16 query rows, and keep
+//    their float32 sums in registers for the block's life: dW [16, D] and
+//    dQ [16, E] a warp, written once a block.
+//  - Every fragment comes from shared memory through ldmatrix (.trans for
+//    the transposed operands: S and Q as [k][n], e and de as [px][q] read
+//    as q-major), rows padded by 16 bytes so that no load meets a bank
+//    conflict.
+//  - The bins backward's dc and db sums over a warp's 16 pixels are
+//    reduce-scattered across the 8 lanes that share a column (each lane
+//    keeps one 8-column tile) and summed over the warps once a block.
+//  - Loop bounds follow the real query tiles; the D tiles (4 or 8 of 16)
+//    and the E tiles (2, 4, 6 or 8) are compiled in, so the indoor D = 64
+//    pays for 64 bins.
 //
 // Reductions across blocks (dQ, dW, db, dc) are written as per-block
 // partials and summed by a second kernel in a fixed order, not with
@@ -88,7 +110,6 @@ constexpr int kMaxE = 128;
 constexpr int kTile = 64;          // pixels per summary tile
 constexpr int kDepthWarps = 4;     // warps per depth block
 constexpr int kDepthTilesPerWarp = 8;
-constexpr int kMaxEBwd = 64;     // the backward kernels take E <= 64
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -462,59 +483,83 @@ __global__ void __launch_bounds__(32 * kDepthWarps) sql_depth_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Backward passes (E <= kMaxEBwd).
-//
-// Fragment loads from shared memory. "k-contiguous" tiles hold the
-// product's reduction index in consecutive addresses and give 32-bit
-// loads; the transposed forms gather two 16-bit values a register.
+// Backward passes: blocks of kBwdWarps warps, kStep pixels a step (16 a
+// warp), fragments from shared memory through ldmatrix and stmatrix, S
+// tiles through cp.async.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kStep = 16 * kBwdWarps;  // pixels per block step
+constexpr int kLdQ = kMaxQ + 8;        // row stride of the staged [px][q] tiles
+constexpr size_t kMaxSmem = 232448;    // dynamic shared memory a block can have
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t pair16(const __nv_bfloat16* lo, const __nv_bfloat16* hi) {
-  return (uint32_t)*reinterpret_cast<const uint16_t*>(lo) |
-         ((uint32_t)*reinterpret_cast<const uint16_t*>(hi) << 16);
+// Four 8x8 bf16 matrices between shared memory and registers. Lane l gives
+// the address of row l % 8 of matrix l / 8; register i holds matrix i as
+// an mma fragment (row lane / 4, columns 2 * (lane % 4) and the next), or
+// with .trans the transposed matrix.
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.x4.m8n8.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-// A[r][k] = M[(r0 + r) * ld + k0 + k]
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* M, int ld,
-                                       int r0, int k0, int g, int t) {
-  const __nv_bfloat16* p = M + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.x4.trans.m8n8.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-// A[r][k] = M[(k0 + k) * ld + r0 + r]
-__device__ __forceinline__ void frag_a_t(uint32_t (&a)[4], const __nv_bfloat16* M, int ld,
-                                         int r0, int k0, int g, int t) {
-  const __nv_bfloat16* p = M + (k0 + 2 * t) * ld + r0 + g;
-  a[0] = pair16(p, p + ld);
-  a[1] = pair16(p + 8, p + ld + 8);
-  a[2] = pair16(p + 8 * ld, p + 9 * ld);
-  a[3] = pair16(p + 8 * ld + 8, p + 9 * ld + 8);
+__device__ __forceinline__ void stsm(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.x4.m8n8.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :
+               : "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
-// B[k][n] = M[(n0 + n) * ld + k0 + k]
-__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* M,
-                                       int ld, int n0, int k0, int g, int t) {
-  const __nv_bfloat16* p = M + (n0 + g) * ld + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
+// Lane offsets (elements) into a tile of row stride ld, added to the
+// address of the tile's top-left element:
+//   lane_x: matrices at (rows, cols) (0, 0), (8, 0), (0, 8), (8, 8): the A
+//     fragment of an [m][k] tile (ldsm, and stsm back), or with ldsm_t the
+//     B fragments of two n-tiles of a [k][n] tile;
+//   lane_y: matrices at (0, 0), (0, 8), (8, 0), (8, 8): the B fragments of
+//     two n-tiles of an [n][k] tile (ldsm), or with ldsm_t the A fragment
+//     of a [k][m] tile.
+// Either way registers 0, 1 are (b0, b1) of the first n-tile, 2, 3 of the
+// second. Rows of 16 * odd bytes keep every ldmatrix free of bank
+// conflicts.
+__device__ __forceinline__ uint32_t lane_x(int lane, int ld) {
+  return 2u * ((lane & 15) * ld + (lane >> 4) * 8);
 }
 
-// B[k][n] = M[(k0 + k) * ld + n0 + n]
-__device__ __forceinline__ void frag_b_t(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* M,
-                                         int ld, int k0, int n0, int g, int t) {
-  const __nv_bfloat16* p = M + (k0 + 2 * t) * ld + n0 + g;
-  b0 = pair16(p, p + ld);
-  b1 = pair16(p + 8 * ld, p + 9 * ld);
+__device__ __forceinline__ uint32_t lane_y(int lane, int ld) {
+  return 2u * (((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8);
 }
 
-// Two adjacent 16x8 accumulator tiles as one 16x16 A fragment (bf16), and
-// stored into a row-major bf16 tile at rows r0.., columns c0.. (16 wide).
+// Byte offset of element (row, col) of a bf16 tile of row stride ld.
+__host__ __device__ constexpr uint32_t at(int row, int col, int ld) {
+  return 2u * (row * ld + col);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Two adjacent 16x8 accumulator tiles as one 16x16 A fragment (bf16).
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
                                          const float (&hi)[4]) {
   a[0] = pack_bf16(lo[0], lo[1]);
@@ -523,14 +568,34 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-__device__ __forceinline__ void store_a(__nv_bfloat16* M, int ld, int r0, int c0,
-                                        const uint32_t (&a)[4], int g, int t) {
-  uint32_t* p = reinterpret_cast<uint32_t*>(M + (r0 + g) * ld + c0 + 2 * t);
-  p[0] = a[0];
-  p[4] = a[2];
-  p += 4 * ld;  // eight rows down: 8 * ld bf16 = 4 * ld words
-  p[0] = a[1];
-  p[4] = a[3];
+// The step's pixel rows [row0, row0 + kStep) of the row-major [n_rows, E]
+// bf16 matrix src into a [kStep][ld] tile, by cp.async (not waited for);
+// zero past n_rows and past E (E % 8 == 0).
+template <int KE>
+__device__ __forceinline__ void load_step(uint32_t dst, int ld,
+                                          const __nv_bfloat16* __restrict__ src, int row0,
+                                          int n_rows, int E, int tid) {
+  constexpr int chunks = 2 * KE;  // 16-byte copies a row
+#pragma unroll
+  for (int j = 0; j < KE; ++j) {
+    const int i = tid + j * kBwdThreads;
+    const int r = i / chunks, c = (i - r * chunks) * 8;
+    const bool valid = row0 + r < n_rows && c < E;
+    cp_async16(dst + at(r, c, ld), valid ? src + (size_t)(row0 + r) * E + c : src, valid);
+  }
+}
+
+// Rows [0, rows) of the row-major [n_rows, cols] matrix src into a
+// [rows][ld] bf16 tile, zero past n_rows and past cols (at block start).
+template <typename T>
+__device__ __forceinline__ void load_padded(__nv_bfloat16* dst, int ld, const T* __restrict__ src,
+                                            int rows, int width, int n_rows, int cols,
+                                            int tid) {
+  for (int i = tid; i < rows * width; i += kBwdThreads) {
+    const int r = i / width, c = i - r * width;
+    dst[r * ld + c] = (r < n_rows && c < cols) ? __float2bfloat16((float)src[(size_t)r * cols + c])
+                                               : __float2bfloat16(0.f);
+  }
 }
 
 // Sum over the middle axis of partials [batch][parts][len] -> [batch][len],
@@ -552,139 +617,163 @@ cudaError_t launch_sum(const float* in, float* out, int batch, int parts, int le
 }
 
 // ---------------------------------------------------------------------------
-// summary backward, pass 1: one block per (chunk of N, b); warp w owns
-// queries [16w, 16w+16), as in the forward. Per 64-pixel tile:
-//   e  = Q . S^T, dattn = bf16(g) . S^T            [16 q, 64 px] per warp
-//   p  = exp(e - m) / z, de = p * (dattn - delta)   (float32)
-//   dQ += bf16(de) . S                              (registers, per warp)
-//   dS  = bf16(de)^T . Q + bf16(p)^T . bf16(g)      (a reduction over q:
-//         p and de go through shared memory, warps split the [64, E] tile)
+// summary backward, pass 1: one block per (chunk of N, b). Per step:
+//  phase 1, warp w on pixels [16w, 16w + 16) of the step, every query tile:
+//   e  = S . Q^T, dattn = S . bf16(g)^T              [16 px, 16 q]
+//   p  = exp(e - m) / z, de = p * (dattn - delta)     (float32)
+//   dS += bf16(de) . Q + bf16(p) . bf16(g)            [16 px, E] -> global
+//   bf16(de) -> shared memory
+//  phase 2, warp w on queries [16w, 16w + 16):
+//   dQ += bf16(de)^T . S                              (registers)
 // ---------------------------------------------------------------------------
-template <int KE>
-__global__ void __launch_bounds__(256) sql_summary_bwd_partial(
+__host__ __device__ constexpr size_t summary_bwd_smem(int KE) {
+  return 2 * ((size_t)2 * kStep * (16 * KE + 8) + (size_t)2 * kMaxQ * (16 * KE + 8) +
+              (size_t)kStep * kLdQ) +
+         (size_t)3 * kMaxQ * sizeof(float);
+}
+
+template <int KE>  // EP = 16 * KE: E padded to 32, 64, 96 or 128
+__global__ void __launch_bounds__(kBwdThreads, KE <= 2 ? 2 : 1) sql_summary_bwd_partial(
     const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ q,
     const float* __restrict__ g, const float* __restrict__ m, const float* __restrict__ z,
     const float* __restrict__ delta, __nv_bfloat16* __restrict__ ds,
     float* __restrict__ part_dq, int N, int Q, int E, int chunk) {
-  constexpr int EP = 16 * KE;
-  constexpr int LD = EP + 8;
-  constexpr int LDT = kTile + 8;
+  constexpr int EP = 16 * KE, LD = EP + 8;
+  constexpr bool kCacheS = KE <= 4;  // the warp's S fragments stay in registers
   extern __shared__ __align__(16) unsigned char smem[];
-  const int QP = round_up(Q, 16);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [QP][LD]
-  __nv_bfloat16* gs = qs + QP * LD;                             // [QP][LD] bf16(g)
-  __nv_bfloat16* ss = gs + QP * LD;                             // [kTile][LD]
-  __nv_bfloat16* ps = ss + kTile * LD;                          // [QP][LDT] bf16(p)
-  __nv_bfloat16* des = ps + QP * LDT;                           // [QP][LDT] bf16(de)
+  __nv_bfloat16* ss = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kStep][LD] S tiles
+  __nv_bfloat16* qs = ss + 2 * kStep * LD;                      // [kMaxQ][LD] Q
+  __nv_bfloat16* gs = qs + kMaxQ * LD;                          // [kMaxQ][LD] bf16(g)
+  __nv_bfloat16* des = gs + kMaxQ * LD;                         // [kStep][kLdQ] bf16(de)
+  float* ms = reinterpret_cast<float*>(des + kStep * kLdQ);     // [kMaxQ] m
+  float* rzs = ms + kMaxQ;                                      // [kMaxQ] 1 / z, 0 past Q
+  float* dts = rzs + kMaxQ;                                     // [kMaxQ] delta
 
   const int b = blockIdx.y, c = blockIdx.x, n_chunks = gridDim.x;
-  const int tid = threadIdx.x, nthreads = blockDim.x, nwarps = nthreads / 32;
-  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, t = lane & 3;
+  const int QP = round_up(Q, 16), QK = QP / 16;
+  const int pr = 16 * warp;  // the warp's pixel rows (phase 1) and query rows (phase 2)
   const __nv_bfloat16* sb = s + (size_t)b * N * E;
-
-  load_rows(qs, LD, q + (size_t)b * Q * E, 0, QP, Q, E, EP, tid, nthreads);
-  for (int i = tid; i < QP * EP; i += nthreads) {
-    const int r = i / EP, cc = i - r * EP;
-    const float v = (r < Q && cc < E) ? g[((size_t)b * Q + r) * E + cc] : 0.f;
-    gs[r * LD + cc] = __float2bfloat16(v);
-  }
-  __syncthreads();
-
-  const int q0 = warp * 16;
-  uint32_t qa[KE][4], ga[KE][4];
-#pragma unroll
-  for (int kk = 0; kk < KE; ++kk) {
-    frag_a(qa[kk], qs, LD, q0, kk * 16, gr, t);
-    frag_a(ga[kk], gs, LD, q0, kk * 16, gr, t);
-  }
-  float mrow[2], zrow[2], drow[2], valid[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + gr + 8 * i;
-    const bool ok = row < Q;
-    mrow[i] = ok ? m[(size_t)b * Q + row] : 0.f;
-    zrow[i] = ok ? z[(size_t)b * Q + row] : 1.f;
-    drow[i] = ok ? delta[(size_t)b * Q + row] : 0.f;
-    valid[i] = ok ? 1.f : 0.f;
-  }
-
-  float acc[2 * KE][4];
-#pragma unroll
-  for (int ne = 0; ne < 2 * KE; ++ne) acc[ne][0] = acc[ne][1] = acc[ne][2] = acc[ne][3] = 0.f;
-
   const int n0 = c * chunk, n1 = min(n0 + chunk, N);
-  for (int t0 = n0; t0 < n1; t0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_rows(ss, LD, sb, t0, kTile, N, E, EP, tid, nthreads);
-    __syncthreads();
+  const uint32_t ss_a = smem_addr(ss), qs_a = smem_addr(qs), gs_a = smem_addr(gs),
+                 des_a = smem_addr(des);
+  const uint32_t lx = lane_x(lane, LD), ly = lane_y(lane, LD);
+  const uint32_t lxq = lane_x(lane, kLdQ), lyq = lane_y(lane, kLdQ);
 
-    float e[kTile / 8][4], da[kTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) e[nt][j] = da[nt][j] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KE; ++kk) {
-        uint32_t b0, b1;
-        frag_b(b0, b1, ss, LD, nt * 8, kk * 16, gr, t);
-        mma16816(e[nt], qa[kk], b0, b1);
-        mma16816(da[nt], ga[kk], b0, b1);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = j >> 1;
-        const bool in = t0 + nt * 8 + 2 * t + (j & 1) < N;
-        const float p = in ? valid[i] * (__expf(e[nt][j] - mrow[i]) / zrow[i]) : 0.f;
-        da[nt][j] = p * (da[nt][j] - drow[i]);
-        e[nt][j] = p;
-      }
-    }
+  load_step<KE>(ss_a, LD, sb, n0, N, E, tid);  // in flight while the rest loads
+  cp_async_commit();
+  load_padded(qs, LD, q + (size_t)b * Q * E, QP, EP, Q, E, tid);
+  load_padded(gs, LD, g + (size_t)b * Q * E, QP, EP, Q, E, tid);
+  for (int r = tid; r < QP; r += kBwdThreads) {
+    const bool in = r < Q;
+    ms[r] = in ? m[(size_t)b * Q + r] : 0.f;
+    rzs[r] = in ? 1.f / z[(size_t)b * Q + r] : 0.f;
+    dts[r] = in ? delta[(size_t)b * Q + r] : 0.f;
+  }
 
-    // dQ += bf16(de) . S_tile, and p / de into shared memory for dS
-    uint32_t dea[kTile / 16][4];
+  float dq[2 * KE][4];
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      acc_to_a(dea[kk], da[2 * kk], da[2 * kk + 1]);
-      acc_to_a(pa, e[2 * kk], e[2 * kk + 1]);
-      store_a(des, LDT, q0, kk * 16, dea[kk], gr, t);
-      store_a(ps, LDT, q0, kk * 16, pa, gr, t);
+  for (int i = 0; i < 2 * KE; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+
+  int buf = 0;
+  for (int t0 = n0; t0 < n1; t0 += kStep, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // the tile has landed; every warp is done with the last step
+    if (t0 + kStep < n1) {
+      load_step<KE>(ss_a + at((buf ^ 1) * kStep, 0, LD), LD, sb, t0 + kStep, N, E, tid);
+      cp_async_commit();
+    }
+    const uint32_t st_a = ss_a + at(buf * kStep, 0, LD);
+
+    // phase 1
+    uint32_t sa[kCacheS ? KE : 1][4];
+    if constexpr (kCacheS) {
+#pragma unroll
+      for (int kk = 0; kk < KE; ++kk) ldsm(sa[kk], st_a + at(pr, 16 * kk, LD) + lx);
+    }
+    const int px = t0 + pr + gr;  // the lane's rows: px and px + 8
+    const bool in0 = px < N, in1 = px + 8 < N;
+    float dsa[2 * KE][4];
+#pragma unroll
+    for (int i = 0; i < 2 * KE; ++i) dsa[i][0] = dsa[i][1] = dsa[i][2] = dsa[i][3] = 0.f;
+#pragma unroll
+    for (int kq = 0; kq < kMaxQ / 16; ++kq) {
+      if (kq < QK) {
+        // e and dattn of this query tile: columns 16kq + 2t (+1) in the
+        // first n-tile, + 8 in the second
+        float e[2][4] = {}, da[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < KE; ++kk) {
+          uint32_t a[4], bq[4], bg[4];
+          if constexpr (kCacheS) {
+            a[0] = sa[kk][0], a[1] = sa[kk][1], a[2] = sa[kk][2], a[3] = sa[kk][3];
+          } else {
+            ldsm(a, st_a + at(pr, 16 * kk, LD) + lx);
+          }
+          ldsm(bq, qs_a + at(16 * kq, 16 * kk, LD) + ly);
+          ldsm(bg, gs_a + at(16 * kq, 16 * kk, LD) + ly);
+          mma16816(e[0], a, bq[0], bq[1]);
+          mma16816(e[1], a, bq[2], bq[3]);
+          mma16816(da[0], a, bg[0], bg[1]);
+          mma16816(da[1], a, bg[2], bg[3]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int qc = 16 * kq + 8 * h + 2 * t;
+          const float2 mm = *reinterpret_cast<const float2*>(ms + qc);
+          const float2 rz = *reinterpret_cast<const float2*>(rzs + qc);
+          const float2 dt = *reinterpret_cast<const float2*>(dts + qc);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bool in = j < 2 ? in0 : in1;
+            const float p = in ? __expf(e[h][j] - ((j & 1) ? mm.y : mm.x)) * ((j & 1) ? rz.y : rz.x)
+                               : 0.f;
+            da[h][j] = p * (da[h][j] - ((j & 1) ? dt.y : dt.x));
+            e[h][j] = p;
+          }
+        }
+        uint32_t pa[4], dea[4];
+        acc_to_a(pa, e[0], e[1]);
+        acc_to_a(dea, da[0], da[1]);
+        stsm(des_a + at(pr, 16 * kq, kLdQ) + lxq, dea);
+#pragma unroll
+        for (int ep = 0; ep < KE; ++ep) {
+          uint32_t bq[4], bg[4];
+          ldsm_t(bq, qs_a + at(16 * kq, 16 * ep, LD) + lx);
+          ldsm_t(bg, gs_a + at(16 * kq, 16 * ep, LD) + lx);
+          mma16816(dsa[2 * ep], dea, bq[0], bq[1]);
+          mma16816(dsa[2 * ep + 1], dea, bq[2], bq[3]);
+          mma16816(dsa[2 * ep], pa, bg[0], bg[1]);
+          mma16816(dsa[2 * ep + 1], pa, bg[2], bg[3]);
+        }
+      }
     }
 #pragma unroll
     for (int ne = 0; ne < 2 * KE; ++ne) {
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t b0, b1;
-        frag_b_t(b0, b1, ss, LD, kk * 16, ne * 8, gr, t);
-        mma16816(acc[ne], dea[kk], b0, b1);
+      const int col = ne * 8 + 2 * t;
+      if (col < E) {  // E % 8 == 0, so col + 1 < E too
+        __nv_bfloat16* out = ds + ((size_t)b * N + px) * E + col;
+        if (in0) *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(dsa[ne][0], dsa[ne][1]);
+        if (in1)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * E) =
+              __floats2bfloat162_rn(dsa[ne][2], dsa[ne][3]);
       }
     }
-    __syncthreads();
+    __syncthreads();  // the step's de tile is complete
 
-    // dS [kTile, EP]: 16x8 output tiles split over the warps
-    for (int tile = warp; tile < (kTile / 16) * (EP / 8); tile += nwarps) {
-      const int rt = tile / (EP / 8), ct = tile - rt * (EP / 8);
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kq = 0; kq < QP / 16; ++kq) {
-        uint32_t a[4], b0, b1;
-        frag_a_t(a, des, LDT, rt * 16, kq * 16, gr, t);
-        frag_b_t(b0, b1, qs, LD, kq * 16, ct * 8, gr, t);
-        mma16816(d, a, b0, b1);
-        frag_a_t(a, ps, LDT, rt * 16, kq * 16, gr, t);
-        frag_b_t(b0, b1, gs, LD, kq * 16, ct * 8, gr, t);
-        mma16816(d, a, b0, b1);
-      }
-      const int px = t0 + rt * 16 + gr, col = ct * 8 + 2 * t;
-      if (col < E) {  // E % 8 == 0, so col + 1 < E too
-        if (px < N)
-          *reinterpret_cast<__nv_bfloat162*>(ds + ((size_t)b * N + px) * E + col) =
-              __floats2bfloat162_rn(d[0], d[1]);
-        if (px + 8 < N)
-          *reinterpret_cast<__nv_bfloat162*>(ds + ((size_t)b * N + px + 8) * E + col) =
-              __floats2bfloat162_rn(d[2], d[3]);
+    // phase 2
+    if (pr < QP) {
+#pragma unroll
+      for (int kp = 0; kp < kStep / 16; ++kp) {
+        uint32_t a[4];
+        ldsm_t(a, des_a + at(16 * kp, pr, kLdQ) + lyq);
+#pragma unroll
+        for (int ep = 0; ep < KE; ++ep) {
+          uint32_t bs[4];
+          ldsm_t(bs, st_a + at(16 * kp, 16 * ep, LD) + lx);
+          mma16816(dq[2 * ep], a, bs[0], bs[1]);
+          mma16816(dq[2 * ep + 1], a, bs[2], bs[3]);
+        }
       }
     }
   }
@@ -692,356 +781,418 @@ __global__ void __launch_bounds__(256) sql_summary_bwd_partial(
   const size_t base = ((size_t)b * n_chunks + c) * Q;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + gr + 8 * i;
+    const int row = pr + gr + 8 * i;
     if (row >= Q) continue;
     float* out = part_dq + (base + row) * E;
 #pragma unroll
     for (int ne = 0; ne < 2 * KE; ++ne) {
       const int col = ne * 8 + 2 * t;
-      if (col < E) {
-        out[col] = acc[ne][2 * i];
-        out[col + 1] = acc[ne][2 * i + 1];
-      }
+      if (col < E) *reinterpret_cast<float2*>(out + col) = make_float2(dq[ne][2 * i], dq[ne][2 * i + 1]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// depth backward, pass 1: one block of kDepthWarps warps per (chunk of N,
-// b), 16 pixels a warp and 64 a block per step. Per warp (registers):
-//   e  = S . Q^T [16, Q] -> bf16 A fragments, also into shared memory
-//   l  = bf16(e) . W + bias, pn = softmax_D(l)
-//   dl = pn * (g c - sum_d pn g c);   dc += pn g,  db += dl (per-warp rows
-//        of shared memory, summed across the 16 pixels with shuffles)
-//   de = bf16(dl) . W^T [16, Q];      dS = bf16(de) . Q  -> global
-// then per block (reductions over the 64 pixels, split over the warps,
-// accumulated in float32 shared memory that each warp owns a part of):
-//   dW += bf16(e)^T . bf16(dl),       dQ += bf16(de)^T . S
+// depth backward, pass 1: one block per (chunk of N, b). Per step:
+//  phase 1, warp w on pixels [16w, 16w + 16):
+//   e  = S . Q^T, one query tile at a time -> bf16 -> shared memory, and
+//   l += bf16(e) . W over that tile            [16 px, D] (+ bias)
+//   pn = softmax_D(l); dl = pn * (g c - sum_d pn g c)
+//   dc += pn g, db += dl (summed over the warp's pixels, see below)
+//   bf16(dl) -> shared memory; de = bf16(dl) . W^T -> bf16 -> shared memory
+//   dS = bf16(de) . Q                           [16 px, E] -> global
+//  phase 2, warp w on queries [16w, 16w + 16):
+//   dW += bf16(e)^T . bf16(dl), dQ += bf16(de)^T . S   (registers)
 // ---------------------------------------------------------------------------
-constexpr int kBwdTile = 16 * kDepthWarps;  // pixels per block step
+__host__ __device__ constexpr size_t depth_bwd_smem(int KE, int KD, int stages) {
+  return 2 * ((size_t)stages * kStep * (16 * KE + 8) + (size_t)kMaxQ * (16 * KE + 8) +
+              (size_t)kMaxQ * (16 * KD + 8) + (size_t)2 * kStep * kLdQ +
+              (size_t)kStep * (16 * KD + 8)) +
+         (size_t)2 * 16 * KD * sizeof(float);
+}
 
-template <int KE>
-__global__ void __launch_bounds__(32 * kDepthWarps) sql_depth_bwd_partial(
+// S tiles in flight: two where they fit beside the rest
+__host__ __device__ constexpr int depth_bwd_stages(int KE, int KD) {
+  return depth_bwd_smem(KE, KD, 2) <= kMaxSmem ? 2 : 1;
+}
+
+// One stage of a reduce-scatter across the lanes lane ^ m: the lane keeps
+// the half of v[0..2H) that its bit m selects, summed with the partner's.
+template <int H>
+__device__ __forceinline__ void reduce_half(float (&v)[32], int lane, int m) {
+  const bool up = lane & m;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? v[i] : v[i + H];
+    const float keep = up ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+  }
+}
+
+// Reduce-scatter of 32 values v[4j + 2 par + quantity] (n-tile j < 8,
+// column 8j + 2t + par) over the 8 lanes of a column quad (lane bits 2-4):
+// afterwards v[0..4) of lane (gr, t) holds the sums over those lanes of
+// the entries of n-tile j = gr.
+__device__ __forceinline__ void quad_column_reduce(float (&v)[32], int lane) {
+  reduce_half<16>(v, lane, 16);
+  reduce_half<8>(v, lane, 8);
+  reduce_half<4>(v, lane, 4);
+}
+
+template <int KE, int KD>  // EP = 16 * KE, DP = 16 * KD (D padded to 64 or 128)
+__global__ void __launch_bounds__(kBwdThreads, 1) sql_depth_bwd_partial(
     const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
     const float* __restrict__ centers, const float* __restrict__ gd,
     __nv_bfloat16* __restrict__ ds, float* __restrict__ part_dq, float* __restrict__ part_dw,
     float* __restrict__ part_db, float* __restrict__ part_dc, int N, int Q, int E, int D,
     int chunk) {
-  constexpr int EP = 16 * KE;
-  constexpr int LD = EP + 8;
-  const int QP = round_up(Q, 16), DP = round_up(D, 8), DP16 = round_up(D, 16);
-  const int QK = QP / 16, DT = DP / 8, DK = DP16 / 16;
-  const int LDQ = QP + 8, LDD = DP16 + 8, LDA = DP + 8;
+  constexpr int EP = 16 * KE, LD = EP + 8;
+  constexpr int DP = 16 * KD, LDD = DP + 8;
+  constexpr int NS = depth_bwd_stages(KE, KD);
+  constexpr bool kCacheS = KE <= 4;
+  constexpr int KEC = KE < 4 ? KE : 4;  // E tiles of 16 per dS pass
   extern __shared__ __align__(16) unsigned char smem[];
-  float* bias_s = reinterpret_cast<float*>(smem);    // [kMaxD], -inf past D
-  float* cen_s = bias_s + kMaxD;                      // [kMaxD], 0 past D
-  float* dcw = cen_s + kMaxD;                         // [kDepthWarps][kMaxD]
-  float* dbw = dcw + kDepthWarps * kMaxD;             // [kDepthWarps][kMaxD]
-  float* dw_acc = dbw + kDepthWarps * kMaxD;          // [QP][LDA]
-  float* dq_acc = dw_acc + QP * LDA;                  // [QP][LD]
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(dq_acc + QP * LD);  // [QP][LDD]
-  __nv_bfloat16* qs = ws + QP * LDD;                  // [QP][LD]
-  __nv_bfloat16* ss = qs + QP * LD;                   // [kBwdTile][LD]
-  __nv_bfloat16* es = ss + kBwdTile * LD;             // [kBwdTile][LDQ] bf16(e)
-  __nv_bfloat16* des = es + kBwdTile * LDQ;           // [kBwdTile][LDQ] bf16(de)
-  __nv_bfloat16* dls = des + kBwdTile * LDQ;          // [kBwdTile][LDD] bf16(dl)
+  __nv_bfloat16* ss = reinterpret_cast<__nv_bfloat16*>(smem);  // [NS][kStep][LD] S tiles
+  __nv_bfloat16* qs = ss + NS * kStep * LD;                     // [kMaxQ][LD] Q
+  __nv_bfloat16* ws = qs + kMaxQ * LD;                          // [kMaxQ][LDD] W
+  __nv_bfloat16* es = ws + kMaxQ * LDD;                         // [kStep][kLdQ] bf16(e)
+  __nv_bfloat16* des = es + kStep * kLdQ;                       // [kStep][kLdQ] bf16(de)
+  __nv_bfloat16* dls = des + kStep * kLdQ;                      // [kStep][LDD] bf16(dl)
+  float* bias_s = reinterpret_cast<float*>(dls + kStep * LDD);  // [DP], -inf past D
+  float* cen_s = bias_s + DP;                                   // [DP], 0 past D
 
   const int b = blockIdx.y, c = blockIdx.x, n_chunks = gridDim.x;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gr = lane >> 2, t = lane & 3;
+  const int QP = round_up(Q, 16), QK = QP / 16;
+  const int pr = 16 * warp;  // the warp's pixel rows (phase 1) and query rows (phase 2)
+  const __nv_bfloat16* sb = s + (size_t)b * N * E;
+  const float* gb = gd + (size_t)b * N;
+  const int n0 = c * chunk, n1 = min(n0 + chunk, N);
+  const uint32_t ss_a = smem_addr(ss), qs_a = smem_addr(qs), ws_a = smem_addr(ws),
+                 es_a = smem_addr(es), des_a = smem_addr(des), dls_a = smem_addr(dls);
+  const uint32_t lx = lane_x(lane, LD), ly = lane_y(lane, LD);
+  const uint32_t lxq = lane_x(lane, kLdQ), lyq = lane_y(lane, kLdQ);
+  const uint32_t lxd = lane_x(lane, LDD), lyd = lane_y(lane, LDD);
 
-  for (int d = tid; d < kMaxD; d += nthreads) {
+  load_step<KE>(ss_a, LD, sb, n0, N, E, tid);  // in flight while the rest loads
+  cp_async_commit();
+  load_padded(qs, LD, q + (size_t)b * Q * E, QP, EP, Q, E, tid);
+  load_padded(ws, LDD, w, QP, DP, Q, D, tid);
+  for (int d = tid; d < DP; d += kBwdThreads) {
     bias_s[d] = d < D ? bias[d] : -INFINITY;
     cen_s[d] = d < D ? centers[(size_t)b * D + d] : 0.f;
   }
-  for (int i = tid; i < kDepthWarps * kMaxD; i += nthreads) dcw[i] = dbw[i] = 0.f;
-  for (int i = tid; i < QP * LDA; i += nthreads) dw_acc[i] = 0.f;
-  for (int i = tid; i < QP * LD; i += nthreads) dq_acc[i] = 0.f;
-  for (int i = tid; i < QP * DP16; i += nthreads) {
-    const int qi = i / DP16, d = i - qi * DP16;
-    ws[qi * LDD + d] = (qi < Q && d < D) ? w[(size_t)qi * D + d] : __float2bfloat16(0.f);
-  }
-  load_rows(qs, LD, q + (size_t)b * Q * E, 0, QP, Q, E, EP, tid, nthreads);
-  const __nv_bfloat16* sb = s + (size_t)b * N * E;
-  const float* gb = gd + (size_t)b * N;
-  const int pr = warp * 16;  // this warp's rows of the block's pixel tile
 
-  const int n0 = c * chunk, n1 = min(n0 + chunk, N);
-  for (int t0 = n0; t0 < n1; t0 += kBwdTile) {
-    __syncthreads();  // the previous step's block products are done
-    load_rows(ss, LD, sb, t0, kBwdTile, N, E, EP, tid, nthreads);
-    __syncthreads();
-
-    // energy [16, QP] as bf16 A fragments (and into es for dW)
-    uint32_t sa[KE][4];
+  float dw[2 * KD][4], dq[2 * KE][4], dcb[KD];
 #pragma unroll
-    for (int kk = 0; kk < KE; ++kk) frag_a(sa[kk], ss, LD, pr, kk * 16, gr, t);
-    uint32_t ea[kMaxQ / 16][4];
+  for (int i = 0; i < 2 * KD; ++i) dw[i][0] = dw[i][1] = dw[i][2] = dw[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 2 * KE; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < KD; ++i) dcb[i] = 0.f;
+
+  int buf = 0;
+  for (int t0 = n0; t0 < n1; t0 += kStep) {
+    cp_async_wait_all();
+    __syncthreads();  // the tile has landed; every warp is done with the last step
+    if constexpr (NS == 2) {
+      if (t0 + kStep < n1) {
+        load_step<KE>(ss_a + at((buf ^ 1) * kStep, 0, LD), LD, sb, t0 + kStep, N, E, tid);
+        cp_async_commit();
+      }
+    }
+    const uint32_t st_a = ss_a + at(buf * kStep, 0, LD);
+    const int px = t0 + pr + gr;  // the lane's rows: px and px + 8
+    const float g0 = px < N ? gb[px] : 0.f, g1 = px + 8 < N ? gb[px + 8] : 0.f;
+
+    // phase 1: energies (staged) and logits
+    uint32_t sa[kCacheS ? KE : 1][4];
+    if constexpr (kCacheS) {
+#pragma unroll
+      for (int kk = 0; kk < KE; ++kk) ldsm(sa[kk], st_a + at(pr, 16 * kk, LD) + lx);
+    }
+    float lg[2 * KD][4];
+#pragma unroll
+    for (int i = 0; i < 2 * KD; ++i) lg[i][0] = lg[i][1] = lg[i][2] = lg[i][3] = 0.f;
 #pragma unroll
     for (int kq = 0; kq < kMaxQ / 16; ++kq) {
       if (kq < QK) {
-        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+        float e0[4] = {}, e1[4] = {};
 #pragma unroll
         for (int kk = 0; kk < KE; ++kk) {
-          uint32_t b0, b1;
-          frag_b(b0, b1, qs, LD, kq * 16, kk * 16, gr, t);
-          mma16816(c0, sa[kk], b0, b1);
-          frag_b(b0, b1, qs, LD, kq * 16 + 8, kk * 16, gr, t);
-          mma16816(c1, sa[kk], b0, b1);
+          uint32_t a[4], bq[4];
+          if constexpr (kCacheS) {
+            a[0] = sa[kk][0], a[1] = sa[kk][1], a[2] = sa[kk][2], a[3] = sa[kk][3];
+          } else {
+            ldsm(a, st_a + at(pr, 16 * kk, LD) + lx);
+          }
+          ldsm(bq, qs_a + at(16 * kq, 16 * kk, LD) + ly);
+          mma16816(e0, a, bq[0], bq[1]);
+          mma16816(e1, a, bq[2], bq[3]);
         }
-        acc_to_a(ea[kq], c0, c1);
-        store_a(es, LDQ, pr, kq * 16, ea[kq], gr, t);
+        uint32_t ea[4];
+        acc_to_a(ea, e0, e1);
+        stsm(es_a + at(pr, 16 * kq, kLdQ) + lxq, ea);
+#pragma unroll
+        for (int dp = 0; dp < KD; ++dp) {
+          uint32_t bw[4];
+          ldsm_t(bw, ws_a + at(16 * kq, 16 * dp, LDD) + lxd);
+          mma16816(lg[2 * dp], ea, bw[0], bw[1]);
+          mma16816(lg[2 * dp + 1], ea, bw[2], bw[3]);
+        }
       }
     }
 
-    // logits [16, DP] = bf16(e) . W + bias, softmax over D
-    float lg[kMaxD / 8][4];
+    // softmax over D (rows gr and gr + 8 across the quad), then
+    // dot = sum_d pn g c
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int dt = 0; dt < kMaxD / 8; ++dt) {
-      if (dt < DT) {
-        lg[dt][0] = lg[dt][1] = lg[dt][2] = lg[dt][3] = 0.f;
-#pragma unroll
-        for (int kq = 0; kq < kMaxQ / 16; ++kq) {
-          if (kq < QK) {
-            uint32_t b0, b1;
-            frag_b_t(b0, b1, ws, LDD, kq * 16, dt * 8, gr, t);
-            mma16816(lg[dt], ea[kq], b0, b1);
-          }
-        }
-        const int col = dt * 8 + 2 * t;
-        lg[dt][0] += bias_s[col];
-        lg[dt][1] += bias_s[col + 1];
-        lg[dt][2] += bias_s[col];
-        lg[dt][3] += bias_s[col + 1];
-        mx0 = fmaxf(mx0, fmaxf(lg[dt][0], lg[dt][1]));
-        mx1 = fmaxf(mx1, fmaxf(lg[dt][2], lg[dt][3]));
-      }
+    for (int j = 0; j < 2 * KD; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias_s + 8 * j + 2 * t);
+      lg[j][0] += bb.x;
+      lg[j][1] += bb.y;
+      lg[j][2] += bb.x;
+      lg[j][3] += bb.y;
+      mx0 = fmaxf(mx0, fmaxf(lg[j][0], lg[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(lg[j][2], lg[j][3]));
     }
     mx0 = quad_max(mx0);
     mx1 = quad_max(mx1);
     float den0 = 0.f, den1 = 0.f;
 #pragma unroll
-    for (int dt = 0; dt < kMaxD / 8; ++dt) {
-      if (dt < DT) {
-        lg[dt][0] = __expf(lg[dt][0] - mx0);
-        lg[dt][1] = __expf(lg[dt][1] - mx0);
-        lg[dt][2] = __expf(lg[dt][2] - mx1);
-        lg[dt][3] = __expf(lg[dt][3] - mx1);
-        den0 += lg[dt][0] + lg[dt][1];
-        den1 += lg[dt][2] + lg[dt][3];
-      }
+    for (int j = 0; j < 2 * KD; ++j) {
+      lg[j][0] = __expf(lg[j][0] - mx0);
+      lg[j][1] = __expf(lg[j][1] - mx0);
+      lg[j][2] = __expf(lg[j][2] - mx1);
+      lg[j][3] = __expf(lg[j][3] - mx1);
+      den0 += lg[j][0] + lg[j][1];
+      den1 += lg[j][2] + lg[j][3];
     }
-    den0 = quad_sum(den0);
-    den1 = quad_sum(den1);
-    const int p0 = t0 + pr + gr;
-    const float g0 = p0 < N ? gb[p0] : 0.f, g1 = p0 + 8 < N ? gb[p0 + 8] : 0.f;
-
-    // pn (in lg), then dot = sum_d pn * g * c per pixel
+    const float r0 = 1.f / quad_sum(den0), r1 = 1.f / quad_sum(den1);
     float dot0 = 0.f, dot1 = 0.f;
 #pragma unroll
-    for (int dt = 0; dt < kMaxD / 8; ++dt) {
-      if (dt < DT) {
-        const int col = dt * 8 + 2 * t;
-        lg[dt][0] /= den0;
-        lg[dt][1] /= den0;
-        lg[dt][2] /= den1;
-        lg[dt][3] /= den1;
-        dot0 += lg[dt][0] * (g0 * cen_s[col]) + lg[dt][1] * (g0 * cen_s[col + 1]);
-        dot1 += lg[dt][2] * (g1 * cen_s[col]) + lg[dt][3] * (g1 * cen_s[col + 1]);
-      }
+    for (int j = 0; j < 2 * KD; ++j) {
+      const float2 cc = *reinterpret_cast<const float2*>(cen_s + 8 * j + 2 * t);
+      lg[j][0] *= r0;
+      lg[j][1] *= r0;
+      lg[j][2] *= r1;
+      lg[j][3] *= r1;
+      dot0 += lg[j][0] * (g0 * cc.x) + lg[j][1] * (g0 * cc.y);
+      dot1 += lg[j][2] * (g1 * cc.x) + lg[j][3] * (g1 * cc.y);
     }
     dot0 = quad_sum(dot0);
     dot1 = quad_sum(dot1);
 
-    // dl (in lg); dc and db summed over the warp's 16 pixels
+    // dl, 8 n-tiles (64 bins) at a time: the lane's two-row sums of dc
+    // and db, reduce-scattered over the column's lanes; bf16(dl) staged
+    uint32_t dla[KD][4];
 #pragma unroll
-    for (int dt = 0; dt < kMaxD / 8; ++dt) {
-      if (dt < DT) {
-        const int col = dt * 8 + 2 * t;
-        const float c0 = cen_s[col], c1 = cen_s[col + 1];
-        float dc0 = lg[dt][0] * g0 + lg[dt][2] * g1;
-        float dc1 = lg[dt][1] * g0 + lg[dt][3] * g1;
-        lg[dt][0] *= g0 * c0 - dot0;
-        lg[dt][1] *= g0 * c1 - dot0;
-        lg[dt][2] *= g1 * c0 - dot1;
-        lg[dt][3] *= g1 * c1 - dot1;
-        float db0 = lg[dt][0] + lg[dt][2], db1 = lg[dt][1] + lg[dt][3];
+    for (int part = 0; part < KD / 4; ++part) {
+      float v[32];
 #pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {
-          dc0 += __shfl_xor_sync(0xffffffffu, dc0, off);
-          dc1 += __shfl_xor_sync(0xffffffffu, dc1, off);
-          db0 += __shfl_xor_sync(0xffffffffu, db0, off);
-          db1 += __shfl_xor_sync(0xffffffffu, db1, off);
-        }
-        if (gr == 0) {
-          dcw[warp * kMaxD + col] += dc0;
-          dcw[warp * kMaxD + col + 1] += dc1;
-          dbw[warp * kMaxD + col] += db0;
-          dbw[warp * kMaxD + col + 1] += db1;
-        }
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * part + jj;
+        const float2 cc = *reinterpret_cast<const float2*>(cen_s + 8 * j + 2 * t);
+        v[4 * jj + 0] = lg[j][0] * g0 + lg[j][2] * g1;
+        v[4 * jj + 2] = lg[j][1] * g0 + lg[j][3] * g1;
+        lg[j][0] *= g0 * cc.x - dot0;
+        lg[j][1] *= g0 * cc.y - dot0;
+        lg[j][2] *= g1 * cc.x - dot1;
+        lg[j][3] *= g1 * cc.y - dot1;
+        v[4 * jj + 1] = lg[j][0] + lg[j][2];
+        v[4 * jj + 3] = lg[j][1] + lg[j][3];
+      }
+      quad_column_reduce(v, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dcb[4 * part + i] += v[i];
+#pragma unroll
+      for (int kd = 4 * part; kd < 4 * part + 4; ++kd) {
+        acc_to_a(dla[kd], lg[2 * kd], lg[2 * kd + 1]);
+        stsm(dls_a + at(pr, 16 * kd, LDD) + lxd, dla[kd]);
       }
     }
 
-    // bf16(dl) as A fragments over D (zero past DP), and into dls for dW
-    uint32_t dla[kMaxD / 16][4];
-#pragma unroll
-    for (int kd = 0; kd < kMaxD / 16; ++kd) {
-      if (kd < DK) {
-        const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-        if (2 * kd + 1 < DT)
-          acc_to_a(dla[kd], lg[2 * kd], lg[2 * kd + 1]);
-        else
-          acc_to_a(dla[kd], lg[2 * kd], zero);
-        store_a(dls, LDD, pr, kd * 16, dla[kd], gr, t);
-      }
-    }
-
-    // de [16, QP] = bf16(dl) . W^T, as bf16 A fragments (and into des)
-    uint32_t dea[kMaxQ / 16][4];
+    // de = bf16(dl) . W^T, staged
 #pragma unroll
     for (int kq = 0; kq < kMaxQ / 16; ++kq) {
       if (kq < QK) {
-        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+        float c0[4] = {}, c1[4] = {};
 #pragma unroll
-        for (int kd = 0; kd < kMaxD / 16; ++kd) {
-          if (kd < DK) {
-            uint32_t b0, b1;
-            frag_b(b0, b1, ws, LDD, kq * 16, kd * 16, gr, t);
-            mma16816(c0, dla[kd], b0, b1);
-            frag_b(b0, b1, ws, LDD, kq * 16 + 8, kd * 16, gr, t);
-            mma16816(c1, dla[kd], b0, b1);
-          }
+        for (int kd = 0; kd < KD; ++kd) {
+          uint32_t bw[4];
+          ldsm(bw, ws_a + at(16 * kq, 16 * kd, LDD) + lyd);
+          mma16816(c0, dla[kd], bw[0], bw[1]);
+          mma16816(c1, dla[kd], bw[2], bw[3]);
         }
-        acc_to_a(dea[kq], c0, c1);
-        store_a(des, LDQ, pr, kq * 16, dea[kq], gr, t);
+        uint32_t dea[4];
+        acc_to_a(dea, c0, c1);
+        stsm(des_a + at(pr, 16 * kq, kLdQ) + lxq, dea);
       }
     }
+    __syncwarp();
 
-    // dS [16, EP] = bf16(de) . Q
+    // dS = bf16(de) . Q from the warp's staged rows, KEC E tiles a pass
 #pragma unroll
-    for (int ne = 0; ne < 2 * KE; ++ne) {
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int e0 = 0; e0 < KE; e0 += KEC) {
+      float acc[2 * KEC][4];
+#pragma unroll
+      for (int i = 0; i < 2 * KEC; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 #pragma unroll
       for (int kq = 0; kq < kMaxQ / 16; ++kq) {
         if (kq < QK) {
-          uint32_t b0, b1;
-          frag_b_t(b0, b1, qs, LD, kq * 16, ne * 8, gr, t);
-          mma16816(d, dea[kq], b0, b1);
+          uint32_t a[4];
+          ldsm(a, des_a + at(pr, 16 * kq, kLdQ) + lxq);
+#pragma unroll
+          for (int ep = 0; ep < KEC; ++ep) {
+            if (e0 + ep < KE) {
+              uint32_t bq[4];
+              ldsm_t(bq, qs_a + at(16 * kq, 16 * (e0 + ep), LD) + lx);
+              mma16816(acc[2 * ep], a, bq[0], bq[1]);
+              mma16816(acc[2 * ep + 1], a, bq[2], bq[3]);
+            }
+          }
         }
       }
-      const int col = ne * 8 + 2 * t;
-      if (col < E) {
-        if (p0 < N)
-          *reinterpret_cast<__nv_bfloat162*>(ds + ((size_t)b * N + p0) * E + col) =
-              __floats2bfloat162_rn(d[0], d[1]);
-        if (p0 + 8 < N)
-          *reinterpret_cast<__nv_bfloat162*>(ds + ((size_t)b * N + p0 + 8) * E + col) =
-              __floats2bfloat162_rn(d[2], d[3]);
+#pragma unroll
+      for (int ne = 0; ne < 2 * KEC; ++ne) {
+        const int col = 16 * e0 + 8 * ne + 2 * t;
+        if (col < E) {
+          __nv_bfloat16* out = ds + ((size_t)b * N + px) * E + col;
+          if (px < N)
+            *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(acc[ne][0], acc[ne][1]);
+          if (px + 8 < N)
+            *reinterpret_cast<__nv_bfloat162*>(out + 8 * E) =
+                __floats2bfloat162_rn(acc[ne][2], acc[ne][3]);
+        }
       }
     }
-    __syncthreads();
+    __syncthreads();  // the step's e, dl and de tiles are complete
 
-    // block products over the step's kBwdTile pixels; each 16x8 output
-    // tile belongs to one warp, so the float32 sums need no atomics
-    for (int tile = warp; tile < QK * DT; tile += kDepthWarps) {
-      const int r0 = (tile / DT) * 16, c0 = (tile % DT) * 8;
-      float* acc = dw_acc + (r0 + gr) * LDA + c0 + 2 * t;
-      float d[4] = {acc[0], acc[1], acc[8 * LDA], acc[8 * LDA + 1]};
+    // phase 2
+    if (pr < QP) {
 #pragma unroll
-      for (int kp = 0; kp < kBwdTile / 16; ++kp) {
-        uint32_t a[4], b0, b1;
-        frag_a_t(a, es, LDQ, r0, kp * 16, gr, t);
-        frag_b_t(b0, b1, dls, LDD, kp * 16, c0, gr, t);
-        mma16816(d, a, b0, b1);
+      for (int kp = 0; kp < kStep / 16; ++kp) {
+        uint32_t a[4];
+        ldsm_t(a, es_a + at(16 * kp, pr, kLdQ) + lyq);
+#pragma unroll
+        for (int dp = 0; dp < KD; ++dp) {
+          uint32_t bl[4];
+          ldsm_t(bl, dls_a + at(16 * kp, 16 * dp, LDD) + lxd);
+          mma16816(dw[2 * dp], a, bl[0], bl[1]);
+          mma16816(dw[2 * dp + 1], a, bl[2], bl[3]);
+        }
+        ldsm_t(a, des_a + at(16 * kp, pr, kLdQ) + lyq);
+#pragma unroll
+        for (int ep = 0; ep < KE; ++ep) {
+          uint32_t bs[4];
+          ldsm_t(bs, st_a + at(16 * kp, 16 * ep, LD) + lx);
+          mma16816(dq[2 * ep], a, bs[0], bs[1]);
+          mma16816(dq[2 * ep + 1], a, bs[2], bs[3]);
+        }
       }
-      acc[0] = d[0];
-      acc[1] = d[1];
-      acc[8 * LDA] = d[2];
-      acc[8 * LDA + 1] = d[3];
     }
-    for (int tile = warp; tile < QK * (EP / 8); tile += kDepthWarps) {
-      const int r0 = (tile / (EP / 8)) * 16, c0 = (tile % (EP / 8)) * 8;
-      float* acc = dq_acc + (r0 + gr) * LD + c0 + 2 * t;
-      float d[4] = {acc[0], acc[1], acc[8 * LD], acc[8 * LD + 1]};
+    if constexpr (NS == 2) {
+      buf ^= 1;
+    } else if (t0 + kStep < n1) {
+      __syncthreads();  // every warp is done with the tile before it is refilled
+      load_step<KE>(ss_a, LD, sb, t0 + kStep, N, E, tid);
+      cp_async_commit();
+    }
+  }
+
+  // the warps' dc and db sums, [kBwdWarps][2][DP] over the energy tile
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(es);
 #pragma unroll
-      for (int kp = 0; kp < kBwdTile / 16; ++kp) {
-        uint32_t a[4], b0, b1;
-        frag_a_t(a, des, LDQ, r0, kp * 16, gr, t);
-        frag_b_t(b0, b1, ss, LD, kp * 16, c0, gr, t);
-        mma16816(d, a, b0, b1);
-      }
-      acc[0] = d[0];
-      acc[1] = d[1];
-      acc[8 * LD] = d[2];
-      acc[8 * LD + 1] = d[3];
+  for (int i = 0; i < KD; ++i) {
+    // entry i of part i / 4: n-tile 8 (i / 4) + gr, parity (i / 2) % 2, dc or db
+    const int d = 8 * (8 * (i >> 2) + gr) + 2 * t + ((i >> 1) & 1);
+    red[(warp * 2 + (i & 1)) * DP + d] = dcb[i];
+  }
+  const size_t blk = (size_t)b * n_chunks + c;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = pr + gr + 8 * h;
+    if (row >= Q) continue;
+    float* ow = part_dw + (blk * Q + row) * D;
+#pragma unroll
+    for (int j = 0; j < 2 * KD; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < D) ow[col] = dw[j][2 * h];
+      if (col + 1 < D) ow[col + 1] = dw[j][2 * h + 1];
+    }
+    float* oq = part_dq + (blk * Q + row) * E;
+#pragma unroll
+    for (int j = 0; j < 2 * KE; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < E) *reinterpret_cast<float2*>(oq + col) = make_float2(dq[j][2 * h], dq[j][2 * h + 1]);
     }
   }
   __syncthreads();
-
-  const size_t blk = (size_t)b * n_chunks + c;
-  for (int i = tid; i < Q * D; i += nthreads) {
-    const int qi = i / D, d = i - qi * D;
-    part_dw[blk * Q * D + i] = dw_acc[qi * LDA + d];
-  }
-  for (int i = tid; i < Q * E; i += nthreads) {
-    const int qi = i / E, e = i - qi * E;
-    part_dq[blk * Q * E + i] = dq_acc[qi * LD + e];
-  }
-  for (int d = tid; d < D; d += nthreads) {
-    float sc = 0.f, sb2 = 0.f;
-    for (int wi = 0; wi < kDepthWarps; ++wi) {
-      sc += dcw[wi * kMaxD + d];
-      sb2 += dbw[wi * kMaxD + d];
+  for (int d = tid; d < D; d += kBwdThreads) {
+    float sc = 0.f, sbias = 0.f;
+    for (int wi = 0; wi < kBwdWarps; ++wi) {
+      sc += red[(wi * 2) * DP + d];
+      sbias += red[(wi * 2 + 1) * DP + d];
     }
     part_dc[blk * D + d] = sc;
-    part_db[blk * D + d] = sb2;
+    part_db[blk * D + d] = sbias;
   }
-}
-
-size_t summary_bwd_smem(int Q, int E) {
-  const int QP = round_up(Q, 16), EP = round_up(E, 16);
-  return ((size_t)2 * QP * (EP + 8) + (size_t)kTile * (EP + 8) +
-          (size_t)2 * QP * (kTile + 8)) * sizeof(__nv_bfloat16);
-}
-
-size_t depth_bwd_smem(int Q, int E, int D) {
-  const int QP = round_up(Q, 16), EP = round_up(E, 16), DP = round_up(D, 8),
-            DP16 = round_up(D, 16);
-  const size_t f32 = (size_t)2 * kMaxD + (size_t)2 * kDepthWarps * kMaxD +
-                     (size_t)QP * (DP + 8) + (size_t)QP * (EP + 8);
-  const size_t b16 = (size_t)QP * (DP16 + 8) + (size_t)QP * (EP + 8) +
-                     (size_t)kBwdTile * (EP + 8) + (size_t)2 * kBwdTile * (QP + 8) +
-                     (size_t)kBwdTile * (DP16 + 8);
-  return f32 * sizeof(float) + b16 * sizeof(__nv_bfloat16);
 }
 
 template <int KE>
-cudaError_t launch_summary_bwd(dim3 grid, size_t smem, cudaStream_t st, const __nv_bfloat16* s,
+cudaError_t launch_summary_bwd(dim3 grid, cudaStream_t st, const __nv_bfloat16* s,
                                const __nv_bfloat16* q, const float* g, const float* m,
                                const float* z, const float* delta, __nv_bfloat16* ds,
                                float* part_dq, int N, int Q, int E, int chunk) {
+  constexpr size_t smem = summary_bwd_smem(KE);
+  static_assert(smem <= kMaxSmem, "summary backward: shared memory");
   cudaError_t err = cudaFuncSetAttribute(sql_summary_bwd_partial<KE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  sql_summary_bwd_partial<KE><<<grid, 32 * (round_up(Q, 16) / 16), smem, st>>>(
-      s, q, g, m, z, delta, ds, part_dq, N, Q, E, chunk);
+  sql_summary_bwd_partial<KE><<<grid, kBwdThreads, smem, st>>>(s, q, g, m, z, delta, ds,
+                                                               part_dq, N, Q, E, chunk);
   return cudaGetLastError();
 }
 
-template <int KE>
-cudaError_t launch_depth_bwd(dim3 grid, size_t smem, cudaStream_t st, const __nv_bfloat16* s,
+template <int KE, int KD>
+cudaError_t launch_depth_bwd(dim3 grid, cudaStream_t st, const __nv_bfloat16* s,
                              const __nv_bfloat16* q, const __nv_bfloat16* w, const float* bias,
                              const float* centers, const float* g, __nv_bfloat16* ds,
                              float* part_dq, float* part_dw, float* part_db, float* part_dc,
                              int N, int Q, int E, int D, int chunk) {
-  cudaError_t err = cudaFuncSetAttribute(sql_depth_bwd_partial<KE>,
+  constexpr size_t smem = depth_bwd_smem(KE, KD, depth_bwd_stages(KE, KD));
+  static_assert(smem <= kMaxSmem, "depth backward: shared memory");
+  cudaError_t err = cudaFuncSetAttribute(sql_depth_bwd_partial<KE, KD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  sql_depth_bwd_partial<KE><<<grid, 32 * kDepthWarps, smem, st>>>(
+  sql_depth_bwd_partial<KE, KD><<<grid, kBwdThreads, smem, st>>>(
       s, q, w, bias, centers, g, ds, part_dq, part_dw, part_db, part_dc, N, Q, E, D, chunk);
   return cudaGetLastError();
+}
+
+// Blocks of a backward kernel that one SM holds at once, as the card
+// reports it for the compiled kernel (registers and shared memory).
+template <typename Kernel>
+int resident_blocks(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBwdThreads, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+template <int KE>
+int summary_bwd_blocks() {
+  return resident_blocks(sql_summary_bwd_partial<KE>, summary_bwd_smem(KE));
+}
+
+template <int KE, int KD>
+int depth_bwd_blocks() {
+  return resident_blocks(sql_depth_bwd_partial<KE, KD>,
+                         depth_bwd_smem(KE, KD, depth_bwd_stages(KE, KD)));
 }
 
 bool shapes_ok(int B, int N, int Q, int E) {
@@ -1151,17 +1302,42 @@ int sql_depth_fwd(const void* s, const void* q, const void* w, const void* bias,
   }
 }
 
+// E tiles of 16 a backward kernel is compiled for: E padded to 32, 64, 96
+// or 128.
+int bwd_e_tiles(int E) { return 2 * ((E + 31) / 32); }
+
+// Blocks of the summary (depth = 0) or bins (depth = 1) backward kernel
+// that one SM of the current card holds at once for embeddings of E and D
+// bins; negative: a CUDA error, negated. The wrapper sizes its chunks and
+// partials from it.
+int sql_bwd_blocks_per_sm(int depth, int E, int D) {
+  if (E <= 0 || E > kMaxE || E % 8 != 0 || D <= 0 || D > kMaxD)
+    return -(int)cudaErrorInvalidValue;
+  const bool wide = D > 64;
+  switch (bwd_e_tiles(E)) {
+#define SQL_BWD_BLOCKS_CASE(KE)                                                    \
+  case KE:                                                                         \
+    if (!depth) return summary_bwd_blocks<KE>();                                   \
+    return wide ? depth_bwd_blocks<KE, 8>() : depth_bwd_blocks<KE, 4>();
+    SQL_BWD_BLOCKS_CASE(2)
+    SQL_BWD_BLOCKS_CASE(4)
+    SQL_BWD_BLOCKS_CASE(6)
+    SQL_BWD_BLOCKS_CASE(8)
+#undef SQL_BWD_BLOCKS_CASE
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
 // Backward of sql_summary_fwd for the cotangent g [B,Q,E] float32 of its
 // output, with the forward's m, z [B,Q] and delta = sum_e g * out [B,Q]:
 // ds [B,N,E] bf16 and dq [B,Q,E] float32. part_dq [B,C,Q,E] float32 with
-// C = ceil(N / chunk), chunk % 64 == 0. E <= 64.
+// C = ceil(N / chunk), chunk % 128 == 0.
 int sql_summary_bwd(const void* s, const void* q, const void* g, const void* m, const void* z,
                     const void* delta, void* ds, void* part_dq, void* dq, int B, int N, int Q,
                     int E, int chunk, void* stream) {
-  if (!shapes_ok(B, N, Q, E) || E > kMaxEBwd || chunk <= 0 || chunk % kTile != 0)
+  if (!shapes_ok(B, N, Q, E) || chunk <= 0 || chunk % kStep != 0)
     return (int)cudaErrorInvalidValue;
   const int n_chunks = (N + chunk - 1) / chunk;
-  const size_t smem = summary_bwd_smem(Q, E);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_chunks, B);
   const auto* sp = static_cast<const __nv_bfloat16*>(s);
@@ -1173,13 +1349,13 @@ int sql_summary_bwd(const void* s, const void* q, const void* g, const void* m, 
   auto* dsp = static_cast<__nv_bfloat16*>(ds);
   auto* pq = static_cast<float*>(part_dq);
   cudaError_t err;
-  switch (round_up(E, 16) / 16) {
+  switch (bwd_e_tiles(E)) {
 #define SQL_SUMMARY_BWD_CASE(KE) \
-  case KE: err = launch_summary_bwd<KE>(grid, smem, st, sp, qp, gp, mp, zp, dp, dsp, pq, N, Q, E, chunk); break;
-    SQL_SUMMARY_BWD_CASE(1)
+  case KE: err = launch_summary_bwd<KE>(grid, st, sp, qp, gp, mp, zp, dp, dsp, pq, N, Q, E, chunk); break;
     SQL_SUMMARY_BWD_CASE(2)
-    SQL_SUMMARY_BWD_CASE(3)
     SQL_SUMMARY_BWD_CASE(4)
+    SQL_SUMMARY_BWD_CASE(6)
+    SQL_SUMMARY_BWD_CASE(8)
 #undef SQL_SUMMARY_BWD_CASE
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1189,18 +1365,15 @@ int sql_summary_bwd(const void* s, const void* q, const void* g, const void* m, 
 
 // Backward of sql_depth_fwd for the cotangent g [B,N] float32 of its
 // output: ds [B,N,E] bf16, dq [B,Q,E], dw [Q,D], db [D] and dc [B,D]
-// float32. Partials, with C = ceil(N / chunk) and chunk % 64 == 0:
+// float32. Partials, with C = ceil(N / chunk) and chunk % 128 == 0:
 // part_dq [B,C,Q,E], part_dw [B,C,Q,D], part_db and part_dc [B,C,D].
-// E <= 64.
 int sql_depth_bwd(const void* s, const void* q, const void* w, const void* bias,
                   const void* centers, const void* g, void* ds, void* part_dq, void* part_dw,
                   void* part_db, void* part_dc, void* dq, void* dw, void* db, void* dc, int B,
                   int N, int Q, int E, int D, int chunk, void* stream) {
-  if (!shapes_ok(B, N, Q, E) || E > kMaxEBwd || D <= 0 || D > kMaxD || chunk <= 0 ||
-      chunk % kBwdTile != 0)
+  if (!shapes_ok(B, N, Q, E) || D <= 0 || D > kMaxD || chunk <= 0 || chunk % kStep != 0)
     return (int)cudaErrorInvalidValue;
   const int n_chunks = (N + chunk - 1) / chunk;
-  const size_t smem = depth_bwd_smem(Q, E, D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_chunks, B);
   const auto* sp = static_cast<const __nv_bfloat16*>(s);
@@ -1214,14 +1387,20 @@ int sql_depth_bwd(const void* s, const void* q, const void* w, const void* bias,
   auto* pw = static_cast<float*>(part_dw);
   auto* pb = static_cast<float*>(part_db);
   auto* pc = static_cast<float*>(part_dc);
+  const bool wide = D > 64;
   cudaError_t err;
-  switch (round_up(E, 16) / 16) {
-#define SQL_DEPTH_BWD_CASE(KE) \
-  case KE: err = launch_depth_bwd<KE>(grid, smem, st, sp, qp, wp, bp, cp, gp, dsp, pq, pw, pb, pc, N, Q, E, D, chunk); break;
-    SQL_DEPTH_BWD_CASE(1)
+  switch (bwd_e_tiles(E)) {
+#define SQL_DEPTH_BWD_CASE(KE)                                                                   \
+  case KE:                                                                                       \
+    err = wide ? launch_depth_bwd<KE, 8>(grid, st, sp, qp, wp, bp, cp, gp, dsp, pq, pw, pb, pc,  \
+                                         N, Q, E, D, chunk)                                      \
+               : launch_depth_bwd<KE, 4>(grid, st, sp, qp, wp, bp, cp, gp, dsp, pq, pw, pb, pc,  \
+                                         N, Q, E, D, chunk);                                     \
+    break;
     SQL_DEPTH_BWD_CASE(2)
-    SQL_DEPTH_BWD_CASE(3)
     SQL_DEPTH_BWD_CASE(4)
+    SQL_DEPTH_BWD_CASE(6)
+    SQL_DEPTH_BWD_CASE(8)
 #undef SQL_DEPTH_BWD_CASE
     default: return (int)cudaErrorInvalidValue;
   }

@@ -119,6 +119,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [codes[k] for k in sig] + [ctypes.c_void_p]
         fn.restype = i32
+    lib.sql_bwd_blocks_per_sm.argtypes = [i32, i32, i32]
+    lib.sql_bwd_blocks_per_sm.restype = i32
     lib.sql_kernel_error_string.argtypes = [i32]
     lib.sql_kernel_error_string.restype = ctypes.c_char_p
     return lib

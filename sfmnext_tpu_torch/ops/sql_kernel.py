@@ -23,6 +23,8 @@ raises. Each launcher counts its launches: ``sql_summary.launches`` and
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from sfmnext_tpu_torch.ops import _build, sql_attention
@@ -31,24 +33,24 @@ from sfmnext_tpu_torch.ops._build import check_tensor, require
 MAX_Q = 128
 MAX_D = 128
 MAX_E = 128
-MAX_E_BWD = 64  # the backward kernels' limit (csrc/sql_kernel.cu kMaxEBwd)
-_TILE = 64  # pixels per block step in the kernels
+_TILE = 64  # pixels per block step in the forward kernels
+_BWD_STEP = 128  # pixels per block step in the backward kernels
 
 
-def _check_features_queries(features, queries, max_e=MAX_E):
+def _check_features_queries(features, queries):
     require(features.dim() == 4, f"features must be [B,H,W,E], got {tuple(features.shape)}")
     require(queries.dim() == 3, f"queries must be [B,Q,E], got {tuple(queries.shape)}")
     b, h, w, e = features.shape
     q = queries.shape[1]
-    require(0 < e <= max_e and e % 8 == 0, f"E={e}: the kernels take E % 8 == 0, E <= {max_e}")
+    require(0 < e <= MAX_E and e % 8 == 0, f"E={e}: the kernels take E % 8 == 0, E <= {MAX_E}")
     require(0 < q <= MAX_Q, f"Q={q}: the kernels take Q <= {MAX_Q}")
     check_tensor("features", features, torch.bfloat16, (b, h, w, e))
     check_tensor("queries", queries, torch.bfloat16, (b, q, e))
     return b, h * w, q, e
 
 
-def _check_bins(features, queries, w, bias, centers, max_e=MAX_E):
-    b, n, q, e = _check_features_queries(features, queries, max_e)
+def _check_bins(features, queries, w, bias, centers):
+    b, n, q, e = _check_features_queries(features, queries)
     require(w.dim() == 2 and w.shape[0] == q, f"w must be [Q={q},D], got {tuple(w.shape)}")
     d = w.shape[1]
     require(0 < d <= MAX_D, f"D={d}: the kernel takes D <= {MAX_D}")
@@ -58,13 +60,31 @@ def _check_bins(features, queries, w, bias, centers, max_e=MAX_E):
     return b, n, q, e, d
 
 
-def _chunk(dev, b: int, n: int, blocks_per_sm: int) -> int:
-    """Pixels per block, in whole tiles, for about ``blocks_per_sm``
-    blocks per SM over the B*N pixels."""
+def _chunk(dev, b: int, n: int, blocks_per_sm: int, tile: int = _TILE) -> int:
+    """Pixels per block, in whole tiles of ``tile`` pixels, for about
+    ``blocks_per_sm`` blocks per SM over the B*N pixels."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chunks = max(1, blocks_per_sm * sms // b)
-    tiles = -(-n // _TILE)
-    return _TILE * -(-tiles // chunks)
+    tiles = -(-n // tile)
+    return tile * -(-tiles // chunks)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks_per_sm(device_index: int, depth: bool, e: int, d: int) -> int:
+    """Blocks of a backward kernel (the bins head's with ``depth``) that
+    one SM of the card holds at once, as the card reports it for the
+    compiled kernel: one wave of blocks covers the card."""
+    lib = _build.library()
+    with torch.cuda.device(device_index):
+        blocks = lib.sql_bwd_blocks_per_sm(int(depth), e, d)
+    if blocks <= 0:
+        _build.check_error(lib, -blocks or 1, "sql_bwd_blocks_per_sm")
+    return blocks
+
+
+def _bwd_chunk(dev, b: int, n: int, depth: bool, e: int, d: int) -> int:
+    """Pixels per backward block: whole steps, one wave over the card."""
+    return _chunk(dev, b, n, _bwd_blocks_per_sm(dev.index, depth, e, d), _BWD_STEP)
 
 
 def sql_summary_fwd(features: torch.Tensor, queries: torch.Tensor):
@@ -101,7 +121,7 @@ def sql_summary_bwd(features, queries, g, m, z, delta):
     """The summary's backward kernel: (dfeatures [B,H,W,E] bf16, dqueries
     [B,Q,E] float32) from the cotangent g [B,Q,E] float32, the forward's
     m, z [B,Q] and delta = sum_e g * summary [B,Q]."""
-    b, n, q, e = _check_features_queries(features, queries, MAX_E_BWD)
+    b, n, q, e = _check_features_queries(features, queries)
     check_tensor("g", g, torch.float32, (b, q, e))
     for name, t in (("m", m), ("z", z), ("delta", delta)):
         check_tensor(name, t, torch.float32, (b, q))
@@ -109,7 +129,7 @@ def sql_summary_bwd(features, queries, g, m, z, delta):
     if dev.type == "cpu":
         return sql_attention.sql_summary_bwd(features, queries, g, m, z, delta)
     lib = _build.library()
-    chunk = _chunk(dev, b, n, 1)
+    chunk = _bwd_chunk(dev, b, n, False, e, 1)
     n_chunks = -(-n // chunk)
     ds = torch.empty_like(features)
     part_dq = torch.empty((b, n_chunks, q, e), device=dev, dtype=torch.float32)
@@ -178,13 +198,13 @@ def sql_depth_bwd(features, queries, w, bias, centers, g):
     """The bins head's backward kernel for the cotangent g [B,H,W,1]
     float32: (dfeatures [B,H,W,E] bf16, dqueries [B,Q,E], dw [Q,D],
     dbias [D], dcenters [B,D]) float32."""
-    b, n, q, e, d = _check_bins(features, queries, w, bias, centers, MAX_E_BWD)
+    b, n, q, e, d = _check_bins(features, queries, w, bias, centers)
     check_tensor("g", g, torch.float32, (*features.shape[:3], 1))
     dev = _build.kernel_device(features, queries, w, bias, centers, g)
     if dev.type == "cpu":
         return sql_attention.sql_depth_bwd(features, queries, w, bias, centers, g)
     lib = _build.library()
-    chunk = _chunk(dev, b, n, 1)
+    chunk = _bwd_chunk(dev, b, n, True, e, d)
     n_chunks = -(-n // chunk)
     f32 = dict(device=dev, dtype=torch.float32)
     ds = torch.empty_like(features)

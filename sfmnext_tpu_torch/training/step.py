@@ -37,9 +37,12 @@ def make_optimizer(opt, models, steps_per_epoch: int):
 class Accumulation:
     """``optax.MultiSteps(every_k_schedule=every)`` over a torch optimizer:
     the gradients of ``every`` micro-steps are averaged as optax does, by a
-    running mean (acc += (g - acc) / (n + 1) after micro-step n), and only
-    then do Adam and the schedule take a step; the parameters do not move
-    before it. ``every=1`` is a plain step."""
+    running mean from zeros (acc += (g - acc) / (n + 1) after micro-step
+    n), and only then do Adam and the schedule take a step; the parameters
+    do not move before it. ``every=1`` is a plain step. A parameter that a
+    micro-step leaves without a gradient gets zeros there, as JAX's
+    gradient of a parameter the loss does not reach; so Adam still decays
+    its moments and moves it, as optax's Adam does."""
 
     def __init__(self, optimizer, scheduler, every: int = 1):
         if every < 1:
@@ -59,13 +62,14 @@ class Accumulation:
 
     def step(self) -> bool:
         """After a micro-step's backward; True when the parameters moved."""
-        if self._acc is not None:
-            with torch.no_grad():
-                for p, acc in zip(self.params, self._acc):
-                    if acc is not None:
-                        g = torch.zeros_like(acc) if p.grad is None else p.grad
-                        p.grad = acc + (g - acc) / (self.micro_step + 1)
-            self._acc = None
+        with torch.no_grad():
+            for i, p in enumerate(self.params):
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                if self._acc is not None:
+                    acc = self._acc[i]
+                    p.grad = acc + (p.grad - acc) / (self.micro_step + 1)
+        self._acc = None
         self.micro_step += 1
         if self.micro_step < self.every:
             return False

@@ -27,13 +27,14 @@ from sfmnext_tpu_torch.ops import sql_attention, sql_kernel
 B, H, W, E, Q, D = 2, 16, 128, 32, 16, 24
 
 
-def _data(seed=0):
+def _data(seed=0, shape=(B, H, W, E, Q, D)):
+    b_, h, w_, e, q, d = shape
     rng = np.random.RandomState(seed)
-    feats = rng.randn(B, H, W, E).astype(np.float32)
-    queries = (rng.randn(B, Q, E) * 0.3).astype(np.float32)
-    w = (rng.randn(Q, D) * 0.2).astype(np.float32)
-    b = (rng.randn(D) * 0.1).astype(np.float32)
-    centers = np.sort(1.0 + 79.0 * rng.rand(B, D).astype(np.float32), axis=1)
+    feats = rng.randn(b_, h, w_, e).astype(np.float32)
+    queries = (rng.randn(b_, q, e) * 0.3).astype(np.float32)
+    w = (rng.randn(q, d) * 0.2).astype(np.float32)
+    b = (rng.randn(d) * 0.1).astype(np.float32)
+    centers = np.sort(1.0 + 79.0 * rng.rand(b_, d).astype(np.float32), axis=1)
     return feats, queries, w, b, centers
 
 
@@ -150,40 +151,63 @@ def _cotangent(shape, seed):
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
 
 
-def test_summary_bwd_matches_pallas_interpret():
-    feats, queries, *_ = _data(6)
-    s = jnp.asarray(feats.reshape(B, H * W, E), jnp.bfloat16)
-    q = jnp.asarray(queries, jnp.bfloat16)
-    g = jnp.asarray(_cotangent((B, Q, E), 7))
+# the widest embedding the kernels take, one tile of pixels, Q and D off
+# the kernels' 16-wide tiles: (B, H, W, E, Q, D)
+WIDE = (1, 8, 128, 128, 24, 40)
+
+
+def _summary_bwd_vs_pallas(shape, seed):
+    b, h, w, e, q, _ = shape
+    feats, queries, *_ = _data(seed, shape)
+    s = jnp.asarray(feats.reshape(b, h * w, e), jnp.bfloat16)
+    qj = jnp.asarray(queries, jnp.bfloat16)
+    g = jnp.asarray(_cotangent((b, q, e), seed + 1))
     with pltpu.force_tpu_interpret_mode():
-        out, m, z = jax_kernel._fq_call_fwd(s, q, TILE)
+        out, m, z = jax_kernel._fq_call_fwd(s, qj, TILE)
         delta = jnp.sum(g * out, axis=-1, keepdims=True)
-        ds, dq = jax_kernel._fq_call_bwd(s, q, g, m, z, delta, TILE)
-    f, qt = _torch_args(feats, queries, *_data(6)[2:])[:2]
+        ds, dq = jax_kernel._fq_call_bwd(s, qj, g, m, z, delta, TILE)
+    f, qt = _torch_args(*_data(seed, shape))[:2]
     got_ds, got_dq = sql_kernel.sql_summary_bwd(
         f, qt, torch.from_numpy(np.array(g)), *(torch.from_numpy(np.array(a)[..., 0])
                                                 for a in (m, z, delta)))
     assert got_ds.dtype == torch.bfloat16 and got_dq.dtype == torch.float32
-    _assert_scaled(got_ds.float().reshape(B, H * W, E), ds)
+    _assert_scaled(got_ds.float().reshape(b, h * w, e), ds)
     _assert_scaled(got_dq, dq)
 
 
-@pytest.mark.parametrize("out", ["ds", "dq", "dw", "db", "dc"])
+def test_summary_bwd_matches_pallas_interpret():
+    _summary_bwd_vs_pallas((B, H, W, E, Q, D), 6)
+
+
+def test_summary_bwd_matches_pallas_interpret_wide():
+    """E = 128, the widest the backward kernels take, at ragged Q."""
+    _summary_bwd_vs_pallas(WIDE, 15)
+
+
+OUTS = ["ds", "dq", "dw", "db", "dc"]
+
+
+@pytest.mark.parametrize("out", OUTS + ["e128"])
 def test_depth_bwd_matches_pallas_interpret(out):
-    args = _data(8)
-    feats, queries, w, b, centers = args
-    g = _cotangent((B, H * W, 1), 9)
+    """One output at the base shape, or every output ("e128") at E = 128
+    with ragged Q and D."""
+    shape, seed = (WIDE, 16) if out == "e128" else ((B, H, W, E, Q, D), 8)
+    b, h, w, e, _, d = shape
+    args = _data(seed, shape)
+    feats, queries, wt, bias, centers = args
+    g = _cotangent((b, h * w, 1), seed + 1)
     with pltpu.force_tpu_interpret_mode():
         expect = jax_kernel._bins_call_bwd(
-            jnp.asarray(feats.reshape(B, H * W, E), jnp.bfloat16),
-            jnp.asarray(queries, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
-            jnp.asarray(b).reshape(1, D), jnp.asarray(centers)[:, None, :],
+            jnp.asarray(feats.reshape(b, h * w, e), jnp.bfloat16),
+            jnp.asarray(queries, jnp.bfloat16), jnp.asarray(wt, jnp.bfloat16),
+            jnp.asarray(bias).reshape(1, d), jnp.asarray(centers)[:, None, :],
             jnp.asarray(g), TILE)
     got = sql_kernel.sql_depth_bwd(*_torch_args(*args),
-                                   torch.from_numpy(g.reshape(B, H, W, 1)))
-    i = ["ds", "dq", "dw", "db", "dc"].index(out)
-    assert got[i].dtype == (torch.bfloat16 if out == "ds" else torch.float32)
-    _assert_scaled(got[i].float().reshape(np.asarray(expect[i]).shape), expect[i])
+                                   torch.from_numpy(g.reshape(b, h, w, 1)))
+    for i, name in enumerate(OUTS):
+        if out in (name, "e128"):
+            assert got[i].dtype == (torch.bfloat16 if name == "ds" else torch.float32)
+            _assert_scaled(got[i].float().reshape(np.asarray(expect[i]).shape), expect[i])
 
 
 def test_summary_autograd_matches_jax_grad():
@@ -221,11 +245,20 @@ def test_depth_autograd_matches_jax_grad():
 
 
 def test_bwd_wrappers_reject_wide_embeddings():
-    """The backward kernels take E <= 64 (the forwards 128)."""
+    """The backward kernels take E <= 128, as the forwards: E = 136 raises
+    in both, E = 128 is taken."""
     rng = np.random.RandomState(14)
-    f = torch.from_numpy(rng.randn(1, 4, 8, 72).astype(np.float32)).to(torch.bfloat16)
-    q = torch.from_numpy(rng.randn(1, 16, 72).astype(np.float32)).to(torch.bfloat16)
-    stats = [torch.ones(1, 16) for _ in range(3)]
-    with pytest.raises(ValueError):
-        sql_kernel.sql_summary_bwd(f, q, torch.zeros(1, 16, 72), *stats)
-    sql_kernel.sql_summary(f, q)  # the forward still takes it
+    for e, takes in ((136, False), (128, True)):
+        f = torch.from_numpy(rng.randn(1, 4, 8, e).astype(np.float32)).to(torch.bfloat16)
+        q = torch.from_numpy(rng.randn(1, 16, e).astype(np.float32)).to(torch.bfloat16)
+        w = torch.from_numpy(rng.randn(16, 8).astype(np.float32)).to(torch.bfloat16)
+        bins = (w, torch.zeros(8), torch.ones(1, 8))
+        stats = [torch.ones(1, 16) for _ in range(3)]
+        calls = (lambda: sql_kernel.sql_summary_bwd(f, q, torch.zeros(1, 16, e), *stats),
+                 lambda: sql_kernel.sql_depth_bwd(f, q, *bins, torch.zeros(1, 4, 8, 1)))
+        for call in calls:
+            if takes:
+                call()
+            else:
+                with pytest.raises(ValueError):
+                    call()
