@@ -28,9 +28,9 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      past the border), at the SQL ops of the resnet18_lite argfile (B=12,
      N=96*320, Q=120, E=128, D=128) and at ragged ones (an identity equal
      to a warped source there: it takes the ties), with median device
-     times (the SQL kernels at the flagship and resnet18_lite shapes, their
-     backwards at the indoor one as well; a sleep
-     kernel queued ahead of the start event, so no host time counts) of
+     times (the SQL kernels at the flagship, indoor and resnet18_lite
+     shapes, the forwards also at the serving batch of 1; a sleep kernel
+     queued ahead of the start event, so no host time counts) of
      the kernel, the plain version and, where one PyTorch call computes the
      same function, that call (library_ms, timed in turns with the kernel:
      kernel, library, library, kernel; the factor printed), and each
@@ -517,10 +517,12 @@ def check_training_kernels(dev):
     results = {}
     every = ("sql_summary", "sql_depth", "sql_summary_bwd", "sql_depth_bwd")
     # (the kernels timed there, B, H x W, Q, E, D): the flagship step's
-    # decoder (its times go into the kernels line), the indoor one, ragged
-    # shapes, and the resnet18_lite argfile's decoder at the widest E
+    # decoder (its times go into the kernels line), the indoor one, the
+    # serving forward at batch 1, ragged shapes, and the resnet18_lite
+    # argfile's decoder at the widest E
     cases = ((every, B_TRAIN, (h // 2, w // 2), Q, E, D),
-             (every[2:], B_TRAIN, (hi // 2, wi // 2), Q, E, D_INDOOR),
+             (every, B_TRAIN, (hi // 2, wi // 2), Q, E, D_INDOOR),
+             (every[:2], 1, (h // 2, w // 2), Q, E, D),
              ((), 2, HW_RAGGED, Q, E, D), ((), 2, (30, 50), 120, 56, 100), (every, *LITE_SQL))
     for i, (timed, b, hw, q, e, d) in enumerate(cases):
         main = i == 0

@@ -10,7 +10,8 @@
 // S [B,N,E] bf16 is the conv3x3 feature map (one row of E per pixel), Qr
 // [B,Q,E] bf16 the transformer's queries, W [Q,D] bf16 the prob 1x1 conv,
 // bias [D] and centers [B,D] float32. Every product runs on the tensor
-// cores through mma.sync m16n8k16 (bf16 operands, float32 accumulation), as
+// cores, through wgmma in the depth forward and mma.sync m16n8k16
+// elsewhere (bf16 operands, float32 accumulation), as
 // the Pallas kernels ran bf16 dots with f32 accumulation on the MXU; softmax
 // statistics stay float32. Limits (checked by the wrapper and here):
 // Q <= 128, D <= 128, E <= 128 with E % 8 == 0; any N (the ragged tail is
@@ -34,16 +35,30 @@
 //    Like the Pallas kernel, the unnormalised p is rounded to bf16 for the
 //    P.S product while z sums it in float32.
 //
-//  * depth. 2*B*N*Q*(E+D) = 13.4 GFLOP of products, the same 21 MB read of
-//    S, and B*N*D = 42 M exps. Each pixel is independent, so there is no
-//    cross-block reduction. q[b] and W^T (32 KB at Q=D=128) sit in shared
-//    memory for the block's life; each warp takes 16 pixels at a time. The
-//    [16,Q] energy tile stays in registers: the accumulator layout of one
-//    m16n8k16 product is the A-operand layout of the next once rounded to
-//    bf16, which is exactly the TPU kernel's _bf16(e_t) before the W
-//    product. The [16,D] logits never leave registers either; the row max
-//    and the exp-weighted sums against the centers reduce across the four
-//    lanes that share a row.
+//  * depth. 2*B*N*Q*(E+D) = 13.4 GFLOP of products (13.6 us at the bf16
+//    peak), the same 21 MB read of S, and B*N*D = 42 M exps on the
+//    special-function units (~10 us): the products and the exps bound it
+//    together (the training batch of 8 doubles all three). Each pixel is
+//    independent, so there is no cross-block reduction. One warpgroup a
+//    block (128 threads) walks 64-pixel tiles with wgmma, the only way to
+//    the tensor cores' full rate: the energy [64, Q] = S . Q^T is an
+//    m64nQk16 chain over E with both operands in shared memory, and its
+//    float32 accumulator, rounded to bf16 (the TPU kernel's _bf16(e_t)),
+//    is the register A operand of the W product [64, D] as it lies
+//    (FlashAttention-3's P.V move), so the energies never leave registers
+//    and each warpgroup reads W once a tile. Q[b] and W^T (32 KB each at
+//    most) load once a block; the next S tile arrives by cp.async into a
+//    second buffer while the current one is multiplied. The [64, D]
+//    logits stay in registers, issued as chains of 64 bins each at once,
+//    so that the exps of one half run while the tensor cores work on the
+//    next (a running max merges the halves); the row max and the
+//    exp-weighted sums against the centers reduce across the four lanes
+//    that share a row. With two warpgroups an SM (199 registers at Q = D =
+//    128), one's exps overlap the other's products too.
+//    Q and D are padded to 64 or 128 (four compiled instances, zero rows of
+//    Q and W, -inf bias past D), E to a multiple of 16 at run time. The
+//    grid is one wave by the card's occupancy for the compiled kernel,
+//    spread over the batch rows, so batch 1 fills the card too.
 //
 // The backward passes, at the training slice's shape (B=8, N=81,920,
 // Q=128, E=32, D=128), counting each input read once and each output
@@ -108,8 +123,6 @@ constexpr int kMaxQ = 128;
 constexpr int kMaxD = 128;
 constexpr int kMaxE = 128;
 constexpr int kTile = 64;          // pixels per summary tile
-constexpr int kDepthWarps = 4;     // warps per depth block
-constexpr int kDepthTilesPerWarp = 8;
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -350,139 +363,6 @@ __global__ void sql_summary_merge(const float* __restrict__ part_m,
 }
 
 // ---------------------------------------------------------------------------
-// depth: blocks stride over 16-pixel tiles of one batch row, one tile per
-// warp at a time. Row strides are compile-time (W^T rows always hold
-// kMaxQ + 8), so fragment addresses are constant offsets.
-// ---------------------------------------------------------------------------
-template <int KE>  // EP = 16 * KE
-__global__ void __launch_bounds__(32 * kDepthWarps) sql_depth_kernel(
-    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
-    const float* __restrict__ centers, float* __restrict__ out, int N, int Q,
-    int E, int D) {
-  constexpr int EP = 16 * KE;
-  constexpr int LDQ = EP + 8;         // q rows and the per-warp S tile
-  constexpr int LDW = kMaxQ + 8;      // W^T rows
-  const int QP = round_up(Q, 16), DP = round_up(D, 8);
-  const int QK = QP / 16, DT = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* bias_s = reinterpret_cast<float*>(smem);  // [kMaxD], -inf past D
-  float* cen_s = bias_s + kMaxD;                    // [kMaxD], 0 past D
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(cen_s + kMaxD);  // [QP][LDQ]
-  __nv_bfloat16* wt = qs + QP * LDQ;                                     // [DP][LDW]
-  __nv_bfloat16* sw = wt + DP * LDW;  // [kDepthWarps][16][LDQ]
-
-  const int b = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-
-  for (int d = tid; d < DP; d += blockDim.x) {
-    bias_s[d] = d < D ? bias[d] : -INFINITY;
-    cen_s[d] = d < D ? centers[(size_t)b * D + d] : 0.f;
-  }
-  load_rows(qs, LDQ, q + (size_t)b * Q * E, 0, QP, Q, E, EP, tid, blockDim.x);
-  for (int i = tid; i < QP * DP; i += blockDim.x) {
-    const int qi = i / DP, d = i - qi * DP;
-    wt[d * LDW + qi] = (qi < Q && d < D) ? w[(size_t)qi * D + d] : __float2bfloat16(0.f);
-  }
-  __syncthreads();
-
-  const uint32_t* qs32 = reinterpret_cast<const uint32_t*>(qs);
-  const uint32_t* wt32 = reinterpret_cast<const uint32_t*>(wt);
-  __nv_bfloat16* swp = sw + warp * 16 * LDQ;
-  const uint32_t* sw32 = reinterpret_cast<const uint32_t*>(swp);
-  const __nv_bfloat16* sb = s + (size_t)b * N * E;
-  const int n_tiles = (N + 15) / 16;
-
-  for (int tile = blockIdx.x * kDepthWarps + warp; tile < n_tiles;
-       tile += gridDim.x * kDepthWarps) {
-    const int p0 = tile * 16;
-    __syncwarp();
-    load_rows(swp, LDQ, sb, p0, 16, N, E, EP, lane, 32);
-    __syncwarp();
-
-    // A fragments of the 16 pixel rows (zero past N and past E)
-    uint32_t sa[KE][4];
-#pragma unroll
-    for (int kk = 0; kk < KE; ++kk) {
-      sa[kk][0] = sw32[(g * LDQ) / 2 + kk * 8 + t];
-      sa[kk][1] = sw32[((g + 8) * LDQ) / 2 + kk * 8 + t];
-      sa[kk][2] = sw32[(g * LDQ) / 2 + kk * 8 + 4 + t];
-      sa[kk][3] = sw32[((g + 8) * LDQ) / 2 + kk * 8 + 4 + t];
-    }
-
-    // energy [16, QP]: query n-tiles 2kq and 2kq+1 give the k-step kq of
-    // the W product, rounded to bf16 on the way
-    uint32_t ea[kMaxQ / 16][4];
-#pragma unroll
-    for (int kq = 0; kq < kMaxQ / 16; ++kq) {
-      if (kq < QK) {
-        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-        const int qa = kq * 16 + g, qb = qa + 8;
-#pragma unroll
-        for (int kk = 0; kk < KE; ++kk) {
-          mma16816(c0, sa[kk], qs32[(qa * LDQ) / 2 + kk * 8 + t],
-                   qs32[(qa * LDQ) / 2 + kk * 8 + 4 + t]);
-          mma16816(c1, sa[kk], qs32[(qb * LDQ) / 2 + kk * 8 + t],
-                   qs32[(qb * LDQ) / 2 + kk * 8 + 4 + t]);
-        }
-        ea[kq][0] = pack_bf16(c0[0], c0[1]);
-        ea[kq][1] = pack_bf16(c0[2], c0[3]);
-        ea[kq][2] = pack_bf16(c1[0], c1[1]);
-        ea[kq][3] = pack_bf16(c1[2], c1[3]);
-      }
-    }
-
-    // logits [16, DP] = bf16(energy) @ W + bias (-inf on padded bins)
-    float lg[kMaxD / 8][4];
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int dt = 0; dt < kMaxD / 8; ++dt) {
-      if (dt < DT) {
-        lg[dt][0] = lg[dt][1] = lg[dt][2] = lg[dt][3] = 0.f;
-        const int row = dt * 8 + g;
-#pragma unroll
-        for (int kq = 0; kq < kMaxQ / 16; ++kq)
-          if (kq < QK)
-            mma16816(lg[dt], ea[kq], wt32[(row * LDW) / 2 + kq * 8 + t],
-                     wt32[(row * LDW) / 2 + kq * 8 + 4 + t]);
-        const int col = dt * 8 + 2 * t;
-        lg[dt][0] += bias_s[col];
-        lg[dt][1] += bias_s[col + 1];
-        lg[dt][2] += bias_s[col];
-        lg[dt][3] += bias_s[col + 1];
-        mx0 = fmaxf(mx0, fmaxf(lg[dt][0], lg[dt][1]));
-        mx1 = fmaxf(mx1, fmaxf(lg[dt][2], lg[dt][3]));
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-
-    float num0 = 0.f, den0 = 0.f, num1 = 0.f, den1 = 0.f;
-#pragma unroll
-    for (int dt = 0; dt < kMaxD / 8; ++dt) {
-      if (dt < DT) {
-        const int col = dt * 8 + 2 * t;
-        const float c0 = cen_s[col], c1 = cen_s[col + 1];
-        const float e0 = __expf(lg[dt][0] - mx0), e1 = __expf(lg[dt][1] - mx0);
-        const float e2 = __expf(lg[dt][2] - mx1), e3 = __expf(lg[dt][3] - mx1);
-        num0 += e0 * c0 + e1 * c1;
-        den0 += e0 + e1;
-        num1 += e2 * c0 + e3 * c1;
-        den1 += e2 + e3;
-      }
-    }
-    num0 = quad_sum(num0);
-    den0 = quad_sum(den0);
-    num1 = quad_sum(num1);
-    den1 = quad_sum(den1);
-    if (t == 0) {
-      if (p0 + g < N) out[(size_t)b * N + p0 + g] = num0 / den0;
-      if (p0 + g + 8 < N) out[(size_t)b * N + p0 + g + 8] = num1 / den1;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Backward passes: blocks of kBwdWarps warps, kStep pixels a step (16 a
 // warp), fragments from shared memory through ldmatrix and stmatrix, S
 // tiles through cp.async.
@@ -614,6 +494,349 @@ cudaError_t launch_sum(const float* in, float* out, int batch, int parts, int le
                        cudaStream_t st) {
   sum_partials<<<dim3((len + 255) / 256, batch), 256, 0, st>>>(in, out, parts, len);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// depth: one warpgroup a block walks 64-pixel tiles of one batch row with
+// wgmma. Operand tiles in shared memory are K-major 8x8 core matrices with
+// no swizzle: element (r, k) of a tile of K columns (K % 16 == 0) at byte
+// core_at(r, k, K), so the 8 rows of a core matrix are 128 contiguous
+// bytes and every wgmma read is free of bank conflicts.
+// ---------------------------------------------------------------------------
+constexpr int kDepthThreads = 128;  // one warpgroup
+constexpr int kDepthPx = 64;        // pixels a tile: wgmma's M
+
+__host__ __device__ constexpr uint32_t core_at(int r, int k, int K) {
+  return (uint32_t)((r >> 3) * (K >> 3) * 128 + (k >> 3) * 128 + (r & 7) * 16 + (k & 7) * 2);
+}
+
+// Shared-memory matrix descriptor of a tile in that layout: the two core
+// matrices of a k16 step 128 bytes apart (leading byte offset), rows of
+// core matrices K / 8 * 128 bytes apart (stride byte offset), no swizzle.
+// The next k16 step starts 256 bytes on: + 16 in the address field.
+__device__ __forceinline__ uint64_t core_desc(uint32_t addr, int K) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)((K / 8 * 128) >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of wgmma are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving register reads or writes across a wgmma
+// that is still in flight.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Writes of this thread to shared memory (st.shared, cp.async) become
+// visible to wgmma, which reads through the async proxy.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// d (+)= A . B, m64n64k16, A and B from shared memory (descriptors).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (+)= A . B, m64n64k16, A from registers (an mma A fragment a warp), B
+// from shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d (+)= A . B, m64n128k16, A and B from shared memory (descriptors).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (+)= A . B, m64n128k16, A from registers (an mma A fragment a warp), B
+// from shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+
+__host__ __device__ constexpr size_t depth_smem(int QN, int DN, int EP) {
+  return 2 * (size_t)DN * sizeof(float) +
+         ((size_t)DN * QN + (size_t)QN * EP + 2 * (size_t)kDepthPx * EP) * 2;
+}
+
+template <int QN, int DN>  // Q padded to 64 or 128, D likewise
+__global__ void __launch_bounds__(kDepthThreads, 2) sql_depth_kernel(
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
+    const float* __restrict__ centers, float* __restrict__ out, int N, int Q, int E, int D) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int EP = round_up(E, 16), KE = EP / 16;
+  float* bias_s = reinterpret_cast<float*>(smem);  // [DN], -inf past D
+  float* cen_s = bias_s + DN;                      // [DN], 0 past D
+  unsigned char* wt = smem + 2 * DN * sizeof(float);  // W^T [DN][QN], core layout
+  unsigned char* qs = wt + DN * QN * 2;               // Q [QN][EP], core layout
+  unsigned char* ss = qs + QN * EP * 2;               // [2] S tiles [kDepthPx][EP]
+
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* sb = s + (size_t)b * N * E;
+  const int n_tiles = (N + kDepthPx - 1) / kDepthPx;
+  const uint32_t ss_a = smem_addr(ss), tile_bytes = kDepthPx * EP * 2;
+
+  // an S tile into buffer buf by cp.async, 16 bytes (8 k of one pixel) a
+  // copy, rows fastest: 8 neighbouring lanes fill one core matrix; zero
+  // past N and past E
+  auto load_tile = [&](int tile, int buf) {
+    const int p0 = tile * kDepthPx;
+    for (int i = tid; i < kDepthPx * EP / 8; i += kDepthThreads) {
+      const int r = i % kDepthPx, k = (i / kDepthPx) * 8;
+      const bool valid = p0 + r < N && k < E;
+      cp_async16(ss_a + buf * tile_bytes + core_at(r, k, EP),
+                 valid ? sb + (size_t)(p0 + r) * E + k : sb, valid);
+    }
+    cp_async_commit();
+  };
+
+  int tile = blockIdx.x;
+  if (tile < n_tiles) load_tile(tile, 0);  // in flight while the block's operands load
+  for (int i = tid; i < QN * EP / 8; i += kDepthThreads) {
+    const int r = i % QN, k = (i / QN) * 8;
+    const bool valid = r < Q && k < E;
+    cp_async16(smem_addr(qs) + core_at(r, k, EP), valid ? q + ((size_t)b * Q + r) * E + k : q,
+               valid);
+  }
+  cp_async_commit();
+  // W [Q][D] as the K-major B operand W^T, once a block; zero past Q and D.
+  // Every load of a thread is issued before the first store waits on one:
+  // 16-byte rows of 8 bins where D % 8 == 0, single values otherwise.
+  if (D % 8 == 0) {
+    constexpr int kVecs = QN * DN / 8 / kDepthThreads, kBatch = kVecs < 8 ? kVecs : 8;
+    for (int j0 = 0; j0 < kVecs; j0 += kBatch) {
+      uint4 v[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = tid + (j0 + j) * kDepthThreads, qi = i / (DN / 8), d = (i % (DN / 8)) * 8;
+        v[j] = (qi < Q && d < D) ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)qi * D + d))
+                                 : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = tid + (j0 + j) * kDepthThreads, qi = i / (DN / 8), d = (i % (DN / 8)) * 8;
+        const uint16_t* h = reinterpret_cast<const uint16_t*>(&v[j]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          *reinterpret_cast<uint16_t*>(wt + core_at(d + k, qi, QN)) = h[k];
+      }
+    }
+  } else {
+    constexpr int kVals = 16;
+    for (int i0 = tid; i0 < QN * DN; i0 += kVals * kDepthThreads) {
+      __nv_bfloat16 v[kVals];
+#pragma unroll
+      for (int j = 0; j < kVals; ++j) {
+        const int i = i0 + j * kDepthThreads, d = i % DN, qi = i / DN;
+        v[j] = (i < QN * DN && qi < Q && d < D) ? w[(size_t)qi * D + d] : __float2bfloat16(0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < kVals; ++j) {
+        const int i = i0 + j * kDepthThreads;
+        if (i < QN * DN)
+          *reinterpret_cast<__nv_bfloat16*>(wt + core_at(i % DN, i / DN, QN)) = v[j];
+      }
+    }
+  }
+  for (int d = tid; d < DN; d += kDepthThreads) {
+    bias_s[d] = d < D ? bias[d] : -INFINITY;
+    cen_s[d] = d < D ? centers[(size_t)b * D + d] : 0.f;
+  }
+
+  const uint64_t q_desc = core_desc(smem_addr(qs), EP), w_desc = core_desc(smem_addr(wt), QN);
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int buf = it & 1;
+    if (tile + (int)gridDim.x < n_tiles) {
+      load_tile(tile + gridDim.x, buf ^ 1);
+    } else {
+      cp_async_commit();  // an empty group keeps the count
+    }
+    cp_async_wait_one();  // this tile (and Q) have landed
+    fence_async_smem();
+    __syncthreads();
+
+    // energy [64 px, QN] = S . Q^T over E; warp w holds pixels 16w + g and
+    // 16w + g + 8, columns 8j + 2t (+1) in e[4j..4j+3]
+    const uint64_t s_desc = core_desc(ss_a + buf * tile_bytes, EP);
+    // no initial values: the first product of each chain overwrites them
+    // (scale-d 0), and an instruction of ours writing an accumulator would
+    // make ptxas serialize the wgmmas
+    float e[QN / 2];
+    fence_regs(e);
+    wgmma_fence();
+    for (int kk = 0; kk < KE; ++kk) wgmma_ss(e, s_desc + 16 * kk, q_desc + 16 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(e);
+
+    // bf16(energy) is the A fragment of the W product as it lies: the
+    // accumulator columns 16kq..16kq+15 are k-step kq
+    uint32_t ea[QN / 16][4];
+#pragma unroll
+    for (int kq = 0; kq < QN / 16; ++kq) {
+      ea[kq][0] = pack_bf16(e[8 * kq], e[8 * kq + 1]);
+      ea[kq][1] = pack_bf16(e[8 * kq + 2], e[8 * kq + 3]);
+      ea[kq][2] = pack_bf16(e[8 * kq + 4], e[8 * kq + 5]);
+      ea[kq][3] = pack_bf16(e[8 * kq + 6], e[8 * kq + 7]);
+    }
+
+    // logits [64, DN] = bf16(energy) . W in halves of 64 bins, every half's
+    // chain issued at once: the softmax of one half runs while the tensor
+    // cores work on the next
+    constexpr int kHalves = DN / 64;
+    float lg[kHalves][32];
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) fence_regs(lg[h]);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+      for (int kq = 0; kq < QN / 16; ++kq)
+        wgmma_rs(lg[h], ea[kq], w_desc + h * (8 * QN / 8 * 128 >> 4) + 16 * kq, kq);
+      wgmma_commit();
+    }
+
+    // + bias (-inf on padded bins); a softmax over the bins against the
+    // centers, merged half by half (running max, rescaled sums); a row's
+    // four lanes reduce together
+    float m[2] = {-INFINITY, -INFINITY}, num[2] = {0.f, 0.f}, den[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      if (h + 1 < kHalves)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence_regs(lg[h]);
+      float* l = lg[h];
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(bias_s + 64 * h + 8 * j + 2 * t);
+        l[4 * j] += bb.x;
+        l[4 * j + 1] += bb.y;
+        l[4 * j + 2] += bb.x;
+        l[4 * j + 3] += bb.y;
+        mx[0] = fmaxf(mx[0], fmaxf(l[4 * j], l[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(l[4 * j + 2], l[4 * j + 3]));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // the first half holds a real bin (D >= 1), so m is finite after it
+        const float mn = fmaxf(m[i], quad_max(mx[i]));
+        const float scale = __expf(m[i] - mn);
+        num[i] *= scale;
+        den[i] *= scale;
+        m[i] = mn;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 cc = *reinterpret_cast<const float2*>(cen_s + 64 * h + 8 * j + 2 * t);
+        const float e0 = __expf(l[4 * j] - m[0]), e1 = __expf(l[4 * j + 1] - m[0]);
+        const float e2 = __expf(l[4 * j + 2] - m[1]), e3 = __expf(l[4 * j + 3] - m[1]);
+        num[0] += e0 * cc.x + e1 * cc.y;
+        den[0] += e0 + e1;
+        num[1] += e2 * cc.x + e3 * cc.y;
+        den[1] += e2 + e3;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      num[i] = quad_sum(num[i]);
+      den[i] = quad_sum(den[i]);
+    }
+    const int px = tile * kDepthPx + 16 * warp + g;
+    if (t == 0) {
+      if (px < N) out[(size_t)b * N + px] = num[0] / den[0];
+      if (px + 8 < N) out[(size_t)b * N + px + 8] = num[1] / den[1];
+    }
+    __syncthreads();  // every wgmma of this tile is done before its buffer refills
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1175,23 +1398,23 @@ cudaError_t launch_depth_bwd(dim3 grid, cudaStream_t st, const __nv_bfloat16* s,
 // Blocks of a backward kernel that one SM holds at once, as the card
 // reports it for the compiled kernel (registers and shared memory).
 template <typename Kernel>
-int resident_blocks(Kernel kernel, size_t smem) {
+int resident_blocks(Kernel kernel, int threads, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   int blocks = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBwdThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
 template <int KE>
 int summary_bwd_blocks() {
-  return resident_blocks(sql_summary_bwd_partial<KE>, summary_bwd_smem(KE));
+  return resident_blocks(sql_summary_bwd_partial<KE>, kBwdThreads, summary_bwd_smem(KE));
 }
 
 template <int KE, int KD>
 int depth_bwd_blocks() {
-  return resident_blocks(sql_depth_bwd_partial<KE, KD>,
+  return resident_blocks(sql_depth_bwd_partial<KE, KD>, kBwdThreads,
                          depth_bwd_smem(KE, KD, depth_bwd_stages(KE, KD)));
 }
 
@@ -1199,15 +1422,39 @@ bool shapes_ok(int B, int N, int Q, int E) {
   return B > 0 && N > 0 && Q > 0 && Q <= kMaxQ && E > 0 && E <= kMaxE && E % 8 == 0;
 }
 
-template <int KE>
-cudaError_t launch_depth(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
-                         const __nv_bfloat16* s, const __nv_bfloat16* q, const __nv_bfloat16* w,
-                         const float* bias, const float* centers, float* out, int N, int Q,
-                         int E, int D) {
-  cudaError_t err = cudaFuncSetAttribute(sql_depth_kernel<KE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+constexpr int kMaxDevices = 16;
+
+// The depth kernel for Q and D padded to QN and DN, on a one-wave grid:
+// the blocks one wave of the current card holds (its occupancy for the
+// compiled kernel, queried once per card and E) spread over the batch.
+template <int QN, int DN>
+cudaError_t launch_depth(cudaStream_t st, const __nv_bfloat16* s, const __nv_bfloat16* q,
+                         const __nv_bfloat16* w, const float* bias, const float* centers,
+                         float* out, int B, int N, int Q, int E, int D) {
+  static int wave[kMaxDevices][kMaxE / 16 + 1];  // 0 until queried
+  const int EP = round_up(E, 16);
+  const size_t smem = depth_smem(QN, DN, EP);
+  static_assert(depth_smem(QN, DN, kMaxE) <= kMaxSmem, "depth: shared memory");
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  sql_depth_kernel<KE><<<grid, block, smem, stream>>>(s, q, w, bias, centers, out, N, Q, E, D);
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int& blocks = wave[dev][EP / 16];
+  if (blocks == 0) {
+    int sms = 0, per_sm = resident_blocks(sql_depth_kernel<QN, DN>, kDepthThreads, smem);
+    if (per_sm <= 0) return per_sm < 0 ? (cudaError_t)-per_sm : cudaErrorInvalidConfiguration;
+    // the largest E's shared memory, so that any E launches after this
+    err = cudaFuncSetAttribute(sql_depth_kernel<QN, DN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)depth_smem(QN, DN, kMaxE));
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    blocks = per_sm * sms;
+  }
+  const int n_tiles = (N + kDepthPx - 1) / kDepthPx;
+  const dim3 grid(max(1, min(n_tiles, (blocks + B - 1) / B)), B);
+  sql_depth_kernel<QN, DN><<<grid, kDepthThreads, smem, st>>>(s, q, w, bias, centers, out, N, Q,
+                                                              E, D);
   return cudaGetLastError();
 }
 
@@ -1272,13 +1519,6 @@ int sql_depth_fwd(const void* s, const void* q, const void* w, const void* bias,
                   const void* centers, void* out, int B, int N, int Q, int E, int D,
                   void* stream) {
   if (!shapes_ok(B, N, Q, E) || D <= 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
-  const int QP = round_up(Q, 16), EP = round_up(E, 16), DP = round_up(D, 8);
-  const size_t smem = 2 * kMaxD * sizeof(float) +
-                      ((size_t)QP * (EP + 8) + (size_t)DP * (kMaxQ + 8) +
-                       (size_t)kDepthWarps * 16 * (EP + 8)) * sizeof(__nv_bfloat16);
-  const int n_tiles = (N + 15) / 16;
-  const int per_block = kDepthWarps * kDepthTilesPerWarp;
-  const dim3 grid((n_tiles + per_block - 1) / per_block, B), block(32 * kDepthWarps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* sp = static_cast<const __nv_bfloat16*>(s);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -1286,20 +1526,12 @@ int sql_depth_fwd(const void* s, const void* q, const void* w, const void* bias,
   const auto* bp = static_cast<const float*>(bias);
   const auto* cp = static_cast<const float*>(centers);
   auto* op = static_cast<float*>(out);
-  switch (EP / 16) {
-#define SQL_DEPTH_CASE(KE) \
-  case KE: return (int)launch_depth<KE>(grid, block, smem, st, sp, qp, wp, bp, cp, op, N, Q, E, D);
-    SQL_DEPTH_CASE(1)
-    SQL_DEPTH_CASE(2)
-    SQL_DEPTH_CASE(3)
-    SQL_DEPTH_CASE(4)
-    SQL_DEPTH_CASE(5)
-    SQL_DEPTH_CASE(6)
-    SQL_DEPTH_CASE(7)
-    SQL_DEPTH_CASE(8)
-#undef SQL_DEPTH_CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const bool wide_q = Q > 64, wide_d = D > 64;
+  if (wide_q)
+    return (int)(wide_d ? launch_depth<128, 128>(st, sp, qp, wp, bp, cp, op, B, N, Q, E, D)
+                        : launch_depth<128, 64>(st, sp, qp, wp, bp, cp, op, B, N, Q, E, D));
+  return (int)(wide_d ? launch_depth<64, 128>(st, sp, qp, wp, bp, cp, op, B, N, Q, E, D)
+                      : launch_depth<64, 64>(st, sp, qp, wp, bp, cp, op, B, N, Q, E, D));
 }
 
 // E tiles of 16 a backward kernel is compiled for: E padded to 32, 64, 96

@@ -28,38 +28,53 @@
 // way, ssim_kernel.py:589-593) and the backward rounds its result to
 // bfloat16, as autograd's cast back does; all arithmetic is float32.
 //
-// Design. One block of 256 threads owns a 16x32 tile of output pixels of
-// one (batch, source) and loops over the three channels. It stages the
-// tile's halo of P and T in shared memory, with reflected indices at the
-// image edge, and runs the box filter separably: 7-tap sums along rows,
-// then along columns, of p, t, p*p, t*t, p*t. The Pallas kernels take a
-// whole [H,W] plane per grid step and filter with band matmuls because
-// VMEM is large and the MXU otherwise idle; a GPU block tiles instead.
+// The forwards. One block of 256 threads owns a 16x32 tile of output
+// pixels of one (batch, source) and loops over the three channels. It
+// stages the tile's halo of P and T in shared memory, with reflected
+// indices at the image edge, and runs the box filter separably: 7-tap sums
+// along rows, then along columns, of p, t, p*p, t*t, p*t. The Pallas
+// kernels take a whole [H,W] plane per grid step and filter with band
+// matmuls because VMEM is large and the MXU otherwise idle; a GPU block
+// tiles instead. ssim_fwd reads 2 warped frames and the target (float32)
+// and writes the maps: 4*B*H*W*(3N + 3 + N) = 115 MB at the flagship step
+// (B=8, 320x1024, N=M=2), 34 us at 3.35 TB/s; its float32 work (~100
+// operations a pixel, source and channel) takes ~20 us at 67 TFLOP/s:
+// bytes bound it. ssim_ident_min does the same for M identity frames, plus
+// noise and the N maps in, the min and the argument out.
+//
 // The backward recomputes the window statistics from P and T, which it
 // reads anyway, rather than reading 5 residual planes written by the
 // forward (the Pallas kernel stores them only because recomputing blew
-// Mosaic's scoped-VMEM stack, :204-209): the forward writes just its maps.
-// It computes the pooled-map cotangents on the tile plus a 3-pixel halo
-// (so P and T over a 6-pixel halo), then applies the transposed reflect
-// box filter, which differs from the forward one at the first and last
-// three rows and columns (_axis_box_reflect_t, :119-138): with G zero
-// outside the image,
+// Mosaic's scoped-VMEM stack, :204-209). From the pooled-map cotangents it
+// applies the transposed reflect box filter, which differs from the
+// forward one at the first and last three rows and columns
+// (_axis_box_reflect_t, :119-138): with G zero outside the image,
 //   B^T(G)(x) = sum_{|y-x|<=3} G(y) * (1 + [x>=1 && y<=3-x]
 //                                        + [x<=n-2 && y>=2n-5-x]),
-// the two extra terms being the taps that the reflection folds back.
-//
-// What bounds them on an H100 at the flagship step (B=8, 320x1024, N=M=2):
-//   ssim_fwd reads 2 warped frames and the target (float32) and writes
-//     the maps: 4*B*H*W*(3N + 3 + N) = 115 MB -> 34 us at 3.35 TB/s; its
-//     float32 work (~100 operations a pixel, source and channel) takes
-//     ~20 us at 67 TFLOP/s: bytes bound it. A tile's halo (22x38 loaded
-//     for 16x32 outputs) overlaps its neighbours', which L1/L2 should serve.
-//   ssim_ident_min: the same for M identity frames, plus noise and the N
-//     maps in, the min and the argument out: 4*B*H*W*(3M + 3 + N + 2).
-//   ssim_bwd reads P (N frames), T, the cotangent and the argument and
-//     writes dP (N frames): 4*B*H*W*(6N + 3 + 2) = 178 MB -> 53 us; with
-//     the statistics recomputed its arithmetic is ~2.5x the forward's,
-//     still under the bytes.
+// the two extra terms being the taps that the reflection folds back; for
+// 4 <= x <= n-5 both vanish. It reads P (N frames), T, the cotangent and
+// the argument and writes dP: 4*B*H*W*(6N + 3 + 2) = 178 MB at the
+// flagship step, 53 us at 3.35 TB/s, which bounds it; its float32 work
+// (~160 operations a pixel, source and channel) takes ~30 us at 67
+// TFLOP/s. On this card the instructions that the card issues bound it:
+// a 16x32 tile needs its statistics on a 22x38 halo and row sums on 28x38,
+// some 300 instructions an output pixel and channel. The design, against
+// one block per (tile, source) looping over channels, each channel's halo
+// loaded again with a reflection per value:
+//  - a block stages, per tile, the target's halo for all three channels
+//    at once (16-byte loads split into channel planes; reflection only in
+//    tiles that touch the image's edge) and the map cotangent and the
+//    min's argument once, then serves every warped source of the tile;
+//  - each pass gives a thread a run of 2 to 5 outputs, whose 7-tap sums
+//    slide over values held in registers (one load and two adds an output
+//    and statistic instead of seven of each);
+//  - the SSIM terms are skipped where the routed cotangent is zero (off
+//    the image, a source that lost the min), with one reciprocal for the
+//    three quotients;
+//  - the tap counts run only in tiles within 4 pixels of the image's edge;
+//  - dP leaves once a source as 16-byte vectors of whole tile rows;
+//  - a one-wave grid of blocks walks the tiles, 3 blocks an SM (74 KB of
+//    shared memory and 80 registers each).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -261,28 +276,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Backward regions: P and T over the tile plus 6, the pooled-map
-// cotangents over the tile plus 3.
-constexpr int kBH = kTH + 4 * kR, kBW = kTW + 4 * kR;  // 28 x 44
-constexpr int kGH = kTH + 2 * kR, kGW = kTW + 2 * kR;  // 22 x 38
-
-struct BwdSmem {
-  float sp[kBH * kBW], st[kBH * kBW];
-  float hs[5 * kBH * kGW];  // row sums; then the transposed row pass [3][kGH][kTW]
-  float gs[3 * kGH * kGW];  // d/d(mu_p) total, d/d(sigma_p), d/d(sigma_pt)
-};
-static_assert(3 * kGH * kTW <= 5 * kBH * kGW, "the transposed pass reuses the row sums");
-static_assert(sizeof(BwdSmem) <= 48 * 1024, "static shared memory");
-
-// The cotangent of source n's map at pixel pix: per source ([.., N]) or
-// the min's, routed to the source that won.
-__device__ __forceinline__ float map_cotangent(const float* __restrict__ g,
-                                               const int* __restrict__ arg, size_t pix, int n,
-                                               int N) {
-  if (arg == nullptr) return g[pix * N + n];
-  return arg[pix] == n ? g[pix] : 0.f;
-}
-
 // How often output y's window reads input x under reflection, for
 // |y - x| <= 3 with y, x in [0, n).
 __device__ __forceinline__ float tap_count(int y, int x, int n) {
@@ -290,42 +283,215 @@ __device__ __forceinline__ float tap_count(int y, int x, int n) {
          ((x <= n - 2 && y >= 2 * n - 5 - x) ? 1.f : 0.f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ssim_bwd_kernel(Srcs preds, Outs dps, const float* __restrict__ target,
-                    const float* __restrict__ g, const int* __restrict__ arg, int N, int H, int W,
-                    float weight, int bf16) {
-  __shared__ BwdSmem sm;
-  const int b = blockIdx.z / N, n = blockIdx.z % N;
-  const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kTW;
-  const int tx = threadIdx.x % kTW, ty = threadIdx.x / kTW;
-  const size_t img = (size_t)b * H * W * 3;
-  const float* p = preds.p[n] + img;
-  const float* t = target + img;
-  const bool rnd = bf16 != 0;
-  const float w_ssim = weight / 3.f, w_l1 = (1.f - weight) / 3.f;
-  float dp[kRows][3];
+// ---------------------------------------------------------------------------
+// Backward: a block takes 16x32-pixel tiles in turn (a one-wave grid
+// walks them all). Per tile it stages the target's halo (all
+// three channels, tile + 6 each side) and the map cotangent and argument
+// (tile + 3) once, then for each warped source the source's halo, and for
+// each channel runs four passes, each thread taking a short run of
+// outputs so that neighbouring taps come from registers:
+//  1. the 7-tap row sums of p, t, p*p, t*t, p*t    [28 rows x 38 columns]
+//  2. the window statistics down the columns, and from them the pooled
+//     maps' cotangents (zero where the routed cotangent is)  [22 x 38]
+//  3. the transposed filter along the rows          [22 x 32]
+//  4. the transposed filter down the columns, the product rules and the L1
+//     term: dP of the tile                            [16 x 32]
+// dP leaves once a source, all channels, as 16-byte vectors.
+// ---------------------------------------------------------------------------
+constexpr int kBH = kTH + 4 * kR, kBW = kTW + 4 * kR;  // P and T halo: 28 x 44
+constexpr int kGH = kTH + 2 * kR, kGW = kTW + 2 * kR;  // cotangent halo: 22 x 38
+constexpr int kBwdThreads = 256;
 
-  for (int c = 0; c < 3; ++c) {
-    stage(p, t, sm.sp, sm.st, c, y0 - 2 * kR, x0 - 2 * kR, kBH, kBW, H, W, rnd);
-    __syncthreads();
-    row_sums(sm.sp, sm.st, sm.hs, kBH, kBW, kGW);
-    __syncthreads();
-    // cotangents of the pooled maps at pixels (y0-3+r, x0-3+q); zero off
-    // the image, where no loss is taken
-    for (int i = threadIdx.x; i < kGH * kGW; i += kThreads) {
-      const int r = i / kGW, q = i % kGW;
-      const int y = y0 - kR + r, x = x0 - kR + q;
+struct BwdSmem {
+  float t[3][kBH][kBW];  // the target's halo, channels apart
+  float p[3][kBH][kBW];  // the source's halo
+  float rs[5][kBH][kGW];  // pass 1's row sums; pass 3's output [3][kGH][kTW]
+  float cot[3][kGH][kGW];  // pass 2: d/d(mu_p) total, d/d(sigma_p), d/d(sigma_pt)
+  float g[kGH][kGW];       // the map cotangent: the min's, or this source's
+  int won[kGH][kGW];       // the min's argument (this source's index without it)
+  alignas(16) float out[kTH][3 * kTW];  // dP of the tile, channels interleaved
+};
+static_assert(3 * kGH * kTW <= 5 * kBH * kGW, "pass 3 reuses the row sums");
+constexpr size_t kBwdSmem = sizeof(BwdSmem);
+
+struct BwdArgs {
+  Srcs preds;
+  Outs dps;
+  const float* target;
+  const float* g;
+  const int* arg;
+  int B, N, H, W;
+  float w_ssim, w_l1;  // the SSIM and L1 weights over the channel mean: weight / 3, (1 - weight) / 3
+  int bf16;
+};
+
+__device__ __forceinline__ float rounded(float v, int bf16) {
+  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// threadIdx.x, opaque to the compiler: the staging loops' and the passes'
+// indices are then computed where they are used, not hoisted out of the
+// tile, source and channel loops into registers that the passes need.
+__device__ __forceinline__ int opaque_tid() {
+  int t = threadIdx.x;
+  asm volatile("" : "+r"(t));
+  return t;
+}
+
+// The halo of the tile at (y0, x0) of image img (float32 NHWC, 3 channels)
+// into dst [3][kBH][kBW], rounded to bf16 in the bf16 loss. Inside the
+// image, with rows on 16-byte boundaries (W % 4 == 0), each row's span of
+// 132 floats is read as 16-byte vectors and split into channels; else each
+// value is read at its reflected row and column.
+__device__ __forceinline__ void stage_halo(const BwdArgs& A, const float* __restrict__ img,
+                                           float (*dst)[kBH][kBW], int b, int y0, int x0,
+                                           bool inside) {
+  const int ya = y0 - 2 * kR, xa = x0 - 2 * kR;
+  if (inside) {
+    // (x0 - 6) * 3 = 2 (mod 4): the span starts 2 floats into its first
+    // vector. Thread t takes vector t % 34 of rows t / 34 + 7k, so where
+    // its 4 floats go is fixed.
+    constexpr int kVecs = (3 * kBW + 2 + 3) / 4;  // 34 a row
+    constexpr int kRowStep = kBwdThreads / kVecs;  // 7
+    static_assert(kBH % kRowStep == 0, "whole rounds of rows");
+    const int t = opaque_tid();
+    if (t < kVecs * kRowStep) {
+      const int v = t % kVecs, r0 = t / kVecs;
+      int to[4];  // the float's offset in dst[0], -1 outside the span
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = 4 * v + j - 2;
+        to[j] = e >= 0 && e < 3 * kBW ? (e % 3) * kBH * kBW + e / 3 : -1;
+      }
+      const float* src = img + (((size_t)b * A.H + ya + r0) * A.W + xa) * 3 - 2 + 4 * v;
+      float4 x[kBH / kRowStep];
+#pragma unroll
+      for (int k = 0; k < kBH / kRowStep; ++k)
+        x[k] = __ldg(reinterpret_cast<const float4*>(src + (size_t)k * kRowStep * A.W * 3));
+#pragma unroll
+      for (int k = 0; k < kBH / kRowStep; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (to[j] >= 0) (&dst[0][r0 + k * kRowStep][0])[to[j]] = rounded((&x[k].x)[j], A.bf16);
+    }
+  } else {
+    for (int i = opaque_tid(); i < kBH * kBW; i += kBwdThreads) {
+      const int r = i / kBW, q = i - r * kBW;
+      const float* src =
+          img + (((size_t)b * A.H + reflect(ya + r, A.H)) * A.W + reflect(xa + q, A.W)) * 3;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) dst[ch][r][q] = rounded(__ldg(src + ch), A.bf16);
+    }
+  }
+}
+
+// The map cotangent over the cotangent halo (zero off the image): the min's
+// and its argument (n < 0), or source n's.
+__device__ __forceinline__ void stage_cotangent(const BwdArgs& A, BwdSmem& sm, int b, int n,
+                                                int y0, int x0) {
+  for (int i = opaque_tid(); i < kGH * kGW; i += kBwdThreads) {
+    const int r = i / kGW, q = i - r * kGW;
+    const int y = y0 - kR + r, x = x0 - kR + q;
+    float g = 0.f;
+    int won = n;
+    if (y >= 0 && y < A.H && x >= 0 && x < A.W) {
+      const size_t pix = ((size_t)b * A.H + y) * A.W + x;
+      if (n < 0) {
+        g = __ldg(A.g + pix);
+        won = __ldg(A.arg + pix);
+      } else {
+        g = __ldg(A.g + pix * A.N + n);
+      }
+    }
+    sm.g[r][q] = g;
+    sm.won[r][q] = won;
+  }
+}
+
+// Sums of v[o .. o + 6], o < R: the first directly, the others sliding.
+template <int R>
+__device__ __forceinline__ void window_sums(const float (&v)[R + 2 * kR], float (&out)[R]) {
+  float a = 0.f;
+#pragma unroll
+  for (int k = 0; k < 2 * kR + 1; ++k) a += v[k];
+  out[0] = a;
+#pragma unroll
+  for (int o = 1; o < R; ++o) {
+    a += v[o + 2 * kR] - v[o - 1];
+    out[o] = a;
+  }
+}
+
+// The passes of channel c of source n on the staged tile.
+__device__ __forceinline__ void channel_passes(const BwdArgs& A, BwdSmem& sm, int n, int c,
+                                               int y0, int x0) {
+  const int tid = opaque_tid();
+  // 1. row sums: row r, columns 5j .. 5j + 4, one run a thread (the last
+  // run's taps past column 43 read the next row, or the next array: they
+  // feed only the run's columns past 37, which are dropped)
+  constexpr int kRun1 = 5, kRuns1 = (kGW + kRun1 - 1) / kRun1;  // 8 runs a row
+  static_assert(kBH * kRuns1 <= kBwdThreads, "pass 1 in one round");
+  if (tid < kBH * kRuns1) {
+    const int r = tid / kRuns1, q0 = kRun1 * (tid - r * kRuns1);
+    float pv[kRun1 + 2 * kR], tv[kRun1 + 2 * kR];
+#pragma unroll
+    for (int k = 0; k < kRun1 + 2 * kR; ++k) {
+      pv[k] = (&sm.p[c][r][0])[q0 + k];
+      tv[k] = (&sm.t[c][r][0])[q0 + k];
+    }
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      float v[kRun1 + 2 * kR], w[kRun1];
+#pragma unroll
+      for (int k = 0; k < kRun1 + 2 * kR; ++k)
+        v[k] = s == 0 ? pv[k] : s == 1 ? tv[k] : s == 2 ? pv[k] * pv[k]
+             : s == 3 ? tv[k] * tv[k] : pv[k] * tv[k];
+      window_sums<kRun1>(v, w);
+#pragma unroll
+      for (int o = 0; o < kRun1; ++o)
+        if (q0 + o < kGW) sm.rs[s][r][q0 + o] = w[o];
+    }
+  }
+  __syncthreads();
+  // 2. window statistics and the pooled maps' cotangents: column q, rows
+  // 4j .. 4j + 3 (the last run reads 2 rows past the row sums, for its
+  // dropped rows)
+  const float w_ssim = A.w_ssim;
+  for (int i = tid; i < kGW * 6; i += kBwdThreads) {
+    const int q = i % kGW, r0 = 4 * (i / kGW);
+    float st[4][5];  // the window means of rows r0 .. r0 + 3, statistic by statistic
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      float v[10], w[4];
+#pragma unroll
+      for (int k = 0; k < 10; ++k) v[k] = (&sm.rs[s][0][0])[(r0 + k) * kGW + q];
+      window_sums<4>(v, w);
+#pragma unroll
+      for (int o = 0; o < 4; ++o) st[o][s] = w[o] * kInvK2;
+    }
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const int r = r0 + o;
+      if (r >= kGH) break;
       float gmu = 0.f, gsp = 0.f, gspt = 0.f;
-      if (y >= 0 && y < H && x >= 0 && x < W) {
-        const float gm = map_cotangent(g, arg, ((size_t)b * H + y) * W + x, n, N);
-        const Pooled m = pooled(sm.hs, kBH * kGW, kGW, r, q);
+      const float gm = sm.won[r][q] == n ? sm.g[r][q] : 0.f;
+      if (gm != 0.f) {
+        Pooled m;
+        m.mu_p = st[o][0];
+        m.mu_t = st[o][1];
+        m.sp = st[o][2] - m.mu_p * m.mu_p;
+        m.st = st[o][3] - m.mu_t * m.mu_t;
+        m.spt = st[o][4] - m.mu_p * m.mu_t;
         float num, den;
         ssim_terms(m, num, den);
-        const float s = (1.f - num / den) * 0.5f;
+        // one reciprocal for the three quotients (the hardware's, within
+        // 2 ulp of the division)
+        const float rden = __fdividef(1.f, den);
+        const float sv = (1.f - num * rden) * 0.5f;
         // the clamp passes the gradient for 0 <= s <= 1, as torch.clamp's
-        const float gss = (s >= 0.f && s <= 1.f) ? gm * w_ssim : 0.f;
-        const float dnum = gss * (-0.5f / den);
-        const float dden = gss * (0.5f * num / (den * den));
+        const float gss = (sv >= 0.f && sv <= 1.f) ? gm * w_ssim : 0.f;
+        const float dnum = gss * (-0.5f * rden);
+        const float dden = gss * (0.5f * num * rden * rden);
         const float gmu_p = dnum * 2.f * m.mu_t * (2.f * m.spt + kC2) +
                             dden * 2.f * m.mu_p * (m.sp + m.st + kC2);
         gsp = dden * (m.mu_p * m.mu_p + m.mu_t * m.mu_t + kC1);
@@ -333,67 +499,129 @@ __global__ void __launch_bounds__(kThreads)
         // sigma_p = E[p^2] - mu_p^2 and sigma_pt = E[pt] - mu_p mu_t
         gmu = gmu_p - 2.f * m.mu_p * gsp - m.mu_t * gspt;
       }
-      sm.gs[i] = gmu;
-      sm.gs[kGH * kGW + i] = gsp;
-      sm.gs[2 * kGH * kGW + i] = gspt;
+      sm.cot[0][r][q] = gmu;
+      sm.cot[1][r][q] = gsp;
+      sm.cot[2][r][q] = gspt;
     }
-    __syncthreads();
-    // transposed filter along rows: ht[s][r][q] at column x0+q
-    float* ht = sm.hs;
-    for (int i = threadIdx.x; i < kGH * kTW; i += kThreads) {
-      const int r = i / kTW, q = i % kTW;
-      const int x = x0 + q;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-#pragma unroll
-      for (int d = -kR; d <= kR; ++d) {
-        const float cw = tap_count(x + d, x, W);
-        const int gi = r * kGW + q + kR + d;
-        a0 += cw * sm.gs[gi];
-        a1 += cw * sm.gs[kGH * kGW + gi];
-        a2 += cw * sm.gs[2 * kGH * kGW + gi];
-      }
-      ht[i] = a0;
-      ht[kGH * kTW + i] = a1;
-      ht[2 * kGH * kTW + i] = a2;
-    }
-    __syncthreads();
-    // transposed filter along columns, the product rules and the L1 term
-    const int x = x0 + tx;
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int rr = ty + j * (kThreads / kTW);
-      const int y = y0 + rr;
-      float b0 = 0.f, b1 = 0.f, b2 = 0.f;
-#pragma unroll
-      for (int d = -kR; d <= kR; ++d) {
-        const float cw = tap_count(y + d, y, H);
-        const int hi = (rr + kR + d) * kTW + tx;
-        b0 += cw * ht[hi];
-        b1 += cw * ht[kGH * kTW + hi];
-        b2 += cw * ht[2 * kGH * kTW + hi];
-      }
-      const int ci = (rr + 2 * kR) * kBW + tx + 2 * kR;
-      const float pc = sm.sp[ci], tc = sm.st[ci];
-      float v = (b0 + 2.f * pc * b1 + tc * b2) * kInvK2;
-      if (y < H && x < W) {
-        const float gm = map_cotangent(g, arg, ((size_t)b * H + y) * W + x, n, N);
-        const float diff = tc - pc;
-        const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
-        v -= w_l1 * gm * sgn;  // d|t - p|/dp = -sign(t - p)
-      }
-      dp[j][c] = v;
-    }
-    __syncthreads();
   }
-  const int x = x0 + tx;
+  __syncthreads();
+  // 3. the transposed filter along the rows (tap counts within 4 columns of
+  // the image's left and right edge): row r, columns 4j .. 4j + 3
+  float(*ht)[kGH][kTW] = reinterpret_cast<float(*)[kGH][kTW]>(&sm.rs[0][0][0]);
+  const bool x_edge = x0 < 4 || x0 + kTW > A.W - 4;
+  for (int i = tid; i < kGH * (kTW / 4); i += kBwdThreads) {
+    const int r = i / (kTW / 4), q0 = 4 * (i - r * (kTW / 4));
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    const int y = y0 + ty + j * (kThreads / kTW);
-    if (y >= H || x >= W) continue;
-    float* o = dps.p[n] + img + ((size_t)y * W + x) * 3;
+    for (int s = 0; s < 3; ++s) {
+      float v[10];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      o[c] = rnd ? __bfloat162float(__float2bfloat16_rn(dp[j][c])) : dp[j][c];
+      for (int k = 0; k < 10; ++k) v[k] = sm.cot[s][r][q0 + k];
+      if (x_edge) {
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          const int x = x0 + q0 + o;
+          float a = 0.f;
+#pragma unroll
+          for (int d = -kR; d <= kR; ++d) a += tap_count(x + d, x, A.W) * v[o + kR + d];
+          ht[s][r][q0 + o] = a;
+        }
+      } else {  // every weight 1
+        float w[4];
+        window_sums<4>(v, w);
+#pragma unroll
+        for (int o = 0; o < 4; ++o) ht[s][r][q0 + o] = w[o];
+      }
+    }
+  }
+  __syncthreads();
+  // 4. the transposed filter down the columns, the product rules and the
+  // L1 term: column q, rows 2j and 2j + 1
+  const float w_l1 = A.w_l1;
+  const bool y_edge = y0 < 4 || y0 + kTH > A.H - 4;
+  {
+    const int q = tid % kTW, r0 = 2 * (tid / kTW);
+    float bs[3][2];  // the transposed column pass of rows r0, r0 + 1
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = ht[s][r0 + k][q];
+      if (y_edge) {
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+          const int y = y0 + r0 + o;
+          float a = 0.f;
+#pragma unroll
+          for (int d = -kR; d <= kR; ++d) a += tap_count(y + d, y, A.H) * v[o + kR + d];
+          bs[s][o] = a;
+        }
+      } else {  // every weight 1
+        float w[2];
+        window_sums<2>(v, w);
+        bs[s][0] = w[0];
+        bs[s][1] = w[1];
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      const int r = r0 + o;
+      const float pc = sm.p[c][r + 2 * kR][q + 2 * kR], tc = sm.t[c][r + 2 * kR][q + 2 * kR];
+      float val = (bs[0][o] + 2.f * pc * bs[1][o] + tc * bs[2][o]) * kInvK2;
+      const float gm = sm.won[r + kR][q + kR] == n ? sm.g[r + kR][q + kR] : 0.f;
+      const float diff = tc - pc;
+      const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
+      val -= w_l1 * gm * sgn;  // d|t - p|/dp = -sign(t - p)
+      sm.out[r][3 * q + c] = rounded(val, A.bf16);
+    }
+  }
+  __syncthreads();  // pass 1 of the next channel overwrites ht
+}
+
+// dP of the tile to source n's gradient: 16-byte vectors where whole rows
+// of the tile lie on 16-byte boundaries (W % 4 == 0).
+__device__ __forceinline__ void write_tile(const BwdArgs& A, const BwdSmem& sm, float* dp, int b,
+                                           int y0, int x0) {
+  const int rows = min(kTH, A.H - y0), cols = min(kTW, A.W - x0);
+  if (cols == kTW && A.W % 4 == 0) {
+    constexpr int kVecs = 3 * kTW / 4;  // 24 a row
+    for (int i = opaque_tid(); i < rows * kVecs; i += kBwdThreads) {
+      const int r = i / kVecs, v = i - r * kVecs;
+      float4* dst = reinterpret_cast<float4*>(dp + (((size_t)b * A.H + y0 + r) * A.W + x0) * 3);
+      dst[v] = reinterpret_cast<const float4*>(sm.out[r])[v];
+    }
+  } else {
+    for (int i = opaque_tid(); i < rows * 3 * cols; i += kBwdThreads) {
+      const int r = i / (3 * cols), e = i - r * 3 * cols;
+      dp[(((size_t)b * A.H + y0 + r) * A.W + x0) * 3 + e] = sm.out[r][e];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 3) ssim_bwd_kernel(BwdArgs A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem_raw);
+  for (int tile = blockIdx.x;; tile += gridDim.x) {
+    // the tile grid, computed anew each tile (opaque, so not kept in
+    // registers across the passes)
+    const int tiles_x = (A.W + kTW - 1) / kTW, tiles_yx = (A.H + kTH - 1) / kTH * tiles_x;
+    int n_tiles = A.B * tiles_yx;
+    asm volatile("" : "+r"(n_tiles));
+    if (tile >= n_tiles) break;
+    const int b = tile / tiles_yx, rest = tile - b * tiles_yx;
+    const int y0 = (rest / tiles_x) * kTH, x0 = (rest % tiles_x) * kTW;
+    // (the vectors of a row's span reach 2 floats past it)
+    const bool inside = A.W % 4 == 0 && y0 >= 2 * kR && y0 + kTH + 2 * kR <= A.H &&
+                        x0 >= 2 * kR && x0 + kTW + 2 * kR + 1 <= A.W;
+    stage_halo(A, A.target, sm.t, b, y0, x0, inside);
+    if (A.arg != nullptr) stage_cotangent(A, sm, b, -1, y0, x0);
+    for (int n = 0; n < A.N; ++n) {
+      stage_halo(A, A.preds.p[n], sm.p, b, y0, x0, inside);
+      if (A.arg == nullptr) stage_cotangent(A, sm, b, n, y0, x0);
+      __syncthreads();
+      for (int c = 0; c < 3; ++c) channel_passes(A, sm, n, c, y0, x0);
+      write_tile(A, sm, A.dps.p[n], b, y0, x0);
+      __syncthreads();  // the next source's halo and cotangent, the next tile's
+    }
   }
 }
 
@@ -448,13 +676,40 @@ int ssim_ident_min(void* const* idents, const void* target, const void* noise, c
 
 int ssim_bwd(void* const* preds, void* const* dps, const void* target, const void* g,
              const void* arg, int B, int N, int H, int W, int bf16, float weight, void* stream) {
-  Srcs s{};
-  Outs o{};
-  if (!shapes_ok(B, N, H, W) || !fill(s, preds, N) || !fill(o, dps, N))
+  BwdArgs a{};
+  if (!shapes_ok(B, N, H, W) || !fill(a.preds, preds, N) || !fill(a.dps, dps, N))
     return (int)cudaErrorInvalidValue;
-  ssim_bwd_kernel<<<grid(H, W, B * N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, o, static_cast<const float*>(target), static_cast<const float*>(g),
-      static_cast<const int*>(arg), N, H, W, weight, bf16);
+  // one wave: the blocks the current card holds at once (queried once a card)
+  static int wave[16];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 16) return (int)cudaErrorInvalidDevice;
+  if (wave[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(ssim_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kBwdSmem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ssim_bwd_kernel, kBwdThreads,
+                                                          kBwdSmem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    wave[dev] = max(1, per_sm * sms);
+  }
+  a.target = static_cast<const float*>(target);
+  a.g = static_cast<const float*>(g);
+  a.arg = static_cast<const int*>(arg);
+  a.B = B;
+  a.N = N;
+  a.H = H;
+  a.W = W;
+  a.w_ssim = weight / 3.f;
+  a.w_l1 = (1.f - weight) / 3.f;
+  a.bf16 = bf16;
+  const long long tiles = (long long)B * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int blocks = tiles < wave[dev] ? (int)tiles : wave[dev];
+  ssim_bwd_kernel<<<blocks, kBwdThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

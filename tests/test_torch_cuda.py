@@ -33,7 +33,11 @@ wherever the winner leads by more than 2e-4; an identity equal to a warped
 source takes every tie, so that source never wins and gets no gradient.
 The backward divides by the squared SSIM denominator, which amplifies the
 summation-order differences: its gradients agree to 1e-3 of their largest
-value in float32, and to 1e-2 with bf16 rounding (one bf16 step). The
+value in float32, and to 1e-2 with bf16 rounding (one bf16 step), also
+at widths off its 32-column tiles and 16-byte vectors (W = 1025, 9, 70,
+134), at H = 4 and with 1 and 8 sources; it has no atomics, so two calls
+give the same bits. The depth forward is also held at the main paths' shapes
+(serving batch 1, indoor 64 bins, E = 128). The
 jitter kernel computes the plain float32 formulas with FMAs: 1e-5; a
 sample without jitter is copied bit for bit.
 """
@@ -94,7 +98,17 @@ def test_summary_kernel_matches_plain(dev, shape):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+# (B, H, W, Q, E, D) where the depth forward runs on the main paths: a
+# serving request at batch 1, the indoor decoder (64 bins), the
+# resnet18_lite decoder at E = 128
+DEPTH_PATH_SHAPES = [
+    (1, 160, 512, 128, 32, 128),
+    (8, 144, 192, 128, 32, 64),
+    (12, 96, 320, 120, 128, 128),
+]
+
+
+@pytest.mark.parametrize("shape", SHAPES + DEPTH_PATH_SHAPES, ids=str)
 def test_depth_kernel_matches_plain(dev, shape):
     feats, queries, w, bias, centers = _inputs(dev, shape, 1)
     before = sql_kernel.sql_depth.launches
@@ -281,8 +295,12 @@ def test_fused_ops_carry_gradients_on_the_card(dev):
         assert t.grad is not None and bool(torch.isfinite(t.grad.float()).all())
 
 
-# (B, H, W, warped sources, identity sources)
-SSIM_SHAPES = [(8, 320, 1024, 2, 2), (2, 37, 53, 3, 3), (2, 4, 9, 3, 2), (1, 21, 70, 1, 1)]
+# (B, H, W, warped sources, identity sources); the last five put widths off
+# the backward's 32-column tiles and 16-byte vectors (W = 1025, 9, 70, 134),
+# H below the 6-row halo, one and eight sources
+SSIM_SHAPES = [(8, 320, 1024, 2, 2), (2, 37, 53, 3, 3), (2, 4, 9, 3, 2), (1, 21, 70, 1, 1),
+               (1, 6, 1025, 1, 1), (2, 4, 9, 8, 1), (1, 37, 1025, 8, 2), (3, 4, 70, 1, 1),
+               (2, 21, 134, 2, 1)]
 SSIM_MAP_TOL = 1e-4
 LOSS_DTYPES = [torch.float32, torch.bfloat16]
 
@@ -334,6 +352,26 @@ def test_ssim_kernels_match_plain(dev, shape, loss_dtype):
     want = ssim_kernel.plain_bwd(preds, target, g_maps, None, loss_dtype=loss_dtype)
     for a, w in zip(dps_direct, want):
         _assert_scaled(a, w, tol)
+
+
+@pytest.mark.parametrize("routed", [True, False], ids=["routed", "per-source"])
+def test_ssim_bwd_kernel_is_deterministic(dev, routed):
+    """Two calls of the backward on the same inputs agree bit for bit: no
+    atomics, every sum in a fixed order."""
+    b, h, w, n, m = SSIM_SHAPES[0]
+    preds, idents, target, noise = _ssim_inputs(dev, b, h, w, n, m, seed=5)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    if routed:
+        maps = ssim_kernel.ssim_fwd(preds, target)
+        _, arg = ssim_kernel.ssim_ident_min(idents, target, noise, maps)
+        g = torch.randn(b, h, w, device=dev, generator=gen)
+    else:
+        arg, g = None, torch.randn(b, h, w, n, device=dev, generator=gen)
+    first = ssim_kernel.ssim_bwd(preds, target, g, arg)
+    second = ssim_kernel.ssim_bwd(preds, target, g, arg)
+    torch.cuda.synchronize()
+    for a, x in zip(first, second):
+        assert torch.equal(a, x)
 
 
 @pytest.mark.parametrize("shape", [SSIM_SHAPES[0], SSIM_SHAPES[1]], ids=str)
