@@ -38,8 +38,9 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      operations over the 989 TFLOP/s bf16 peak, or the 67 TFLOP/s float32
      one); the warp forward and coordinate gradient also on the smooth
      coordinates a step makes (warp_frame's geometry at 8x320x1024, the
-     indoor rotation warp at 8x288x384), and every kernel's registers and
-     spills from the build log (phase 2);
+     indoor rotation warp at 8x288x384), the image gradient on the indoor
+     step's warps (warp_frame's geometry at 8x288x384, 3 and 1 channels),
+     and every kernel's registers and spills from the build log (phase 2);
   6. train: the flagship training step (args_files/hisfog/kitti/
      resnet_320x1024.txt: batch 8, 320x1024, ResNet-50, bf16 autocast, SSIM
      weight 0.85, automasking; seeded weights, a fixed synthetic batch,
@@ -478,14 +479,17 @@ def warp_inputs(dev, b, h, w, c, seed):
     return img, fy, fx, g
 
 
-def step_warp_inputs(dev, zeros, seed=0):
+def step_warp_inputs(dev, zeros, hw=HW_TRAIN, channels=3, seed=0):
     """Image, coordinates and cotangent of a warp as a training step makes
     it, smooth where warp_inputs jitters every pixel: in border padding,
-    warp_frame's geometry at the flagship shape (8x320x1024: the synthetic
-    batch's depth and intrinsics, a frame -1 with a small pose); in zeros
+    warp_frame's geometry (the synthetic batch's depth and intrinsics at
+    ``hw``, a frame -1 with a small pose): at the flagship shape
+    (8x320x1024) the flagship step's warps, at the indoor one (8x288x384)
+    the indoor step's warps of the rectified frames (``channels`` 3) and of
+    their depths (1), the two that take the image gradient; in zeros
     padding, the indoor RectifyNet's rotation warp (8x288x384, rotations of
     about 0.02 rad)."""
-    hw = HW_INDOOR if zeros else HW_TRAIN
+    hw = HW_INDOOR if zeros else hw
     batch = make_batch(B_TRAIN, *hw, seed=seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     small = lambda scale: scale * torch.randn(B_TRAIN, 3, device=dev, generator=gen)
@@ -497,7 +501,8 @@ def step_warp_inputs(dev, zeros, seed=0):
         T = geometry.transformation_from_parameters(small(0.005), small(0.1), invert=True)
         grid = geometry.project_3d(geometry.backproject_depth(depth, inv_K), K, T, *hw)
     fx, fy = (t.contiguous() for t in warp.unnormalize(grid, *hw))
-    img = torch.from_numpy(batch["color"][:, 1]).to(dev).contiguous()
+    img = torch.from_numpy(batch["color"][:, 1] if channels == 3 else batch["depth_gt"])
+    img = img.to(dev).contiguous()
     g = torch.randn(img.shape, device=dev, generator=gen)
     return img, fy, fx, g
 
@@ -665,7 +670,8 @@ def check_warp_kernels(dev):
     past every border; the kernels-line entries timed where ``WARP_CASES``
     names them (kernel and library in turns), the image gradient at one
     channel printed beside it; then the forward and coordinate gradient on
-    the smooth coordinates a step makes (step_warp_inputs), timed alike."""
+    the smooth coordinates a step makes (step_warp_inputs), timed alike, and
+    the image gradient on the indoor step's warps at 3 and 1 channels."""
     results, errs = {}, {}
     for (b, hh, ww, c), timed in WARP_CASES:
         img, fy, fx, g = warp_inputs(dev, b, hh, ww, c, seed=hh + c)
@@ -701,6 +707,15 @@ def check_warp_kernels(dev):
             print(f"[train-kernel] warp {part} {mode} {'x'.join(map(str, img.shape))} as a step "
                   f"makes it ({where}): max_abs_err {err:.4e} (scaled {WARP_SCALED_TOL}); {text}",
                   flush=True)
+    for c in (3, 1):  # the image gradient on the indoor step's warps (border)
+        img, fy, fx, g = step_warp_inputs(dev, False, HW_INDOOR, c)
+        kernel, plain_fn = warp_parts(img, fy, fx, g, False)["img"]
+        err = warp_err("img", "border", tuple(img.shape), kernel, plain_fn)
+        errs["warp_image_bwd"] = max(errs["warp_image_bwd"], err)
+        _, text = warp_timing("img", img, fy, fx, g, False, kernel)
+        print(f"[train-kernel] warp img border {'x'.join(map(str, img.shape))} as a step makes it "
+              f"(the indoor warp of the rectified {'frames' if c == 3 else 'depths'}): max_abs_err "
+              f"{err:.4e} (scaled {WARP_SCALED_TOL}); warp_image_bwd {text}", flush=True)
     for name, entry in results.items():  # the largest error over every shape and mode
         entry["max_abs_err"] = errs[name]
     return results

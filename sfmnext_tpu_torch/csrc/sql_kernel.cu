@@ -10,30 +10,41 @@
 // S [B,N,E] bf16 is the conv3x3 feature map (one row of E per pixel), Qr
 // [B,Q,E] bf16 the transformer's queries, W [Q,D] bf16 the prob 1x1 conv,
 // bias [D] and centers [B,D] float32. Every product runs on the tensor
-// cores, through wgmma in the depth forward and mma.sync m16n8k16
-// elsewhere (bf16 operands, float32 accumulation), as
-// the Pallas kernels ran bf16 dots with f32 accumulation on the MXU; softmax
-// statistics stay float32. Limits (checked by the wrapper and here):
-// Q <= 128, D <= 128, E <= 128 with E % 8 == 0; any N (the ragged tail is
-// masked).
+// cores, through wgmma in the two forwards and mma.sync m16n8k16 in the
+// backwards (bf16 operands, float32 accumulation), as the Pallas kernels
+// ran bf16 dots with f32 accumulation on the MXU; softmax statistics stay
+// float32. Limits (checked by the wrapper and here): Q <= 128, D <= 128,
+// E <= 128 with E % 8 == 0; any N (the ragged tail is masked).
 //
 // What bounds them on an H100 at the flagship shape (B=4, N=81,920, Q=128,
-// E=32, D=128), and what the design does about it:
+// E=32, D=128; the training step's B=8 doubles each figure), and what the
+// design does about it:
 //
 //  * summary. One read of S: 2*B*N*E bytes = 21 MB, 6.3 us at 3.35 TB/s.
 //    2*2*B*N*Q*E = 5.4 GFLOP of products (5.5 us at the 989 TFLOP/s dense
-//    bf16 peak, which mma.sync does not reach), and B*N*Q = 42 M exps on the
-//    special-function units (16 per clock per SM, about 11 us). So it is
-//    bounded by the exps and the S read together, not by the products.
-//    The TPU kernel walks the pixel tiles in order and carries the running
-//    max, sum and accumulator from one grid step to the next. Blocks on the
-//    GPU run in no order, so N is cut into chunks, one block per (chunk, b)
-//    holding all Q queries (one warp per 16 queries); each block reads its
-//    chunk of S once, keeps the [16,64] energy tile of each warp in
-//    registers, and writes a partial (m, z, acc[Q,E]). A second small kernel
-//    merges the partials by log-sum-exp and divides (flash-decoding).
-//    Like the Pallas kernel, the unnormalised p is rounded to bf16 for the
-//    P.S product while z sums it in float32.
+//    bf16 peak), and B*N*Q = 42 M exps on the special-function units (16
+//    per clock per SM, about 10 us). So it is bounded by the exps and the
+//    S read together, not by the products. The TPU kernel walks the pixel
+//    tiles in order and carries the running max, sum and accumulator from
+//    one grid step to the next. Blocks on the GPU run in no order, so N is
+//    cut into chunks, one block per (chunk, b) holding all Q queries in one
+//    warpgroup per 64 of them (two for Q > 64: both read each S tile from
+//    shared memory, so S leaves device memory once). Per 64-pixel tile, on
+//    wgmma: the energy [64 q, 64 px] = Q . S_tile^T with both operands
+//    K-major in shared memory; an online softmax over the pixels in
+//    registers; and acc [64 q, E] += bf16(p) . S_tile, p as the register A
+//    operand as the energy accumulator lies (FlashAttention-3's P.V move)
+//    and the S tile, stored [px][E], as the B operand read MN-major
+//    through the descriptor's transpose bit, so no transposed copy is
+//    built. The S tiles arrive by cp.async in a ring of three, two in
+//    flight while one is multiplied. Each block writes a partial (m, z,
+//    acc[Q,E]); a second kernel merges them by log-sum-exp in a fixed order
+//    (flash-decoding), one block of four warps a (b, q) row, the warps
+//    splitting the chunks. The wrapper sizes the grid to one wave of the
+//    card's occupancy for the compiled kernel, with no more chunks a batch
+//    row than keep the partials at a quarter of S's bytes (75 at serving
+//    batch 1). Like the Pallas kernel, the unnormalised p is rounded to
+//    bf16 for the P.S product while z sums it in float32.
 //
 //  * depth. 2*B*N*Q*(E+D) = 13.4 GFLOP of products (13.6 us at the bf16
 //    peak), the same 21 MB read of S, and B*N*D = 42 M exps on the
@@ -122,7 +133,6 @@ namespace {
 constexpr int kMaxQ = 128;
 constexpr int kMaxD = 128;
 constexpr int kMaxE = 128;
-constexpr int kTile = 64;          // pixels per summary tile
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -154,212 +164,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Rows [row0, row0 + rows) of a row-major [n_rows, E] bf16 matrix into
-// shared memory as [rows][ld], zero past n_rows and past E (E % 8 == 0,
-// 16-byte loads; ld*2 bytes is a multiple of 16).
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int row0, int rows, int n_rows, int E,
-                                          int EP, int tid, int nthreads) {
-  const int chunks = EP / 8;
-  for (int i = tid; i < rows * chunks; i += nthreads) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows && c < E)
-      v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * E + c));
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// summary, pass 1: one block per (chunk of N, b); warp w owns queries
-// [16w, 16w+16). Row strides of EP+8 and kTile+8 bf16 keep every fragment
-// load free of bank conflicts.
-// ---------------------------------------------------------------------------
-template <int KE>  // EP = 16 * KE (E padded to a multiple of 16)
-__global__ void __launch_bounds__(256) sql_summary_partial(
-    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ q,
-    float* __restrict__ part_m, float* __restrict__ part_z,
-    float* __restrict__ part_acc, int N, int Q, int E, int chunk) {
-  constexpr int EP = 16 * KE;
-  constexpr int LD = EP + 8;
-  constexpr int LDT = kTile + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int QP = round_up(Q, 16);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [QP][LD]
-  __nv_bfloat16* ss = qs + QP * LD;                             // [kTile][LD]
-  __nv_bfloat16* st = ss + kTile * LD;                          // [EP][LDT]
-  const uint32_t* qs32 = reinterpret_cast<const uint32_t*>(qs);
-  const uint32_t* ss32 = reinterpret_cast<const uint32_t*>(ss);
-  const uint32_t* st32 = reinterpret_cast<const uint32_t*>(st);
-  uint16_t* st16 = reinterpret_cast<uint16_t*>(st);
-
-  const int b = blockIdx.y, c = blockIdx.x, n_chunks = gridDim.x;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* sb = s + (size_t)b * N * E;
-
-  load_rows(qs, LD, q + (size_t)b * Q * E, 0, QP, Q, E, EP, tid, nthreads);
-  __syncthreads();
-
-  // A fragments of this warp's 16 query rows (r0 and r0 + 8), all k-steps.
-  const int r0 = warp * 16 + g;
-  uint32_t qa[KE][4];
-#pragma unroll
-  for (int kk = 0; kk < KE; ++kk) {
-    qa[kk][0] = qs32[(r0 * LD) / 2 + kk * 8 + t];
-    qa[kk][1] = qs32[((r0 + 8) * LD) / 2 + kk * 8 + t];
-    qa[kk][2] = qs32[(r0 * LD) / 2 + kk * 8 + 4 + t];
-    qa[kk][3] = qs32[((r0 + 8) * LD) / 2 + kk * 8 + 4 + t];
-  }
-
-  float m[2] = {-INFINITY, -INFINITY};  // running row max (rows r0, r0 + 8)
-  float z[2] = {0.f, 0.f};              // this lane's share of the row sums
-  float acc[2 * KE][4];
-#pragma unroll
-  for (int ne = 0; ne < 2 * KE; ++ne) acc[ne][0] = acc[ne][1] = acc[ne][2] = acc[ne][3] = 0.f;
-
-  const int n0 = c * chunk, n1 = min(n0 + chunk, N);
-  for (int t0 = n0; t0 < n1; t0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    {
-      const int chunks = EP / 8;
-      for (int i = tid; i < kTile * chunks; i += nthreads) {
-        const int r = i / chunks, cc = (i - r * chunks) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (t0 + r < N && cc < E)
-          v = __ldg(reinterpret_cast<const uint4*>(sb + (size_t)(t0 + r) * E + cc));
-        *reinterpret_cast<uint4*>(ss + r * LD + cc) = v;
-        const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st16[(cc + 2 * j) * LDT + r] = (uint16_t)(words[j] & 0xffffu);
-          st16[(cc + 2 * j + 1) * LDT + r] = (uint16_t)(words[j] >> 16);
-        }
-      }
-    }
-    __syncthreads();
-
-    // energy tile [16 queries, kTile pixels], float32
-    float e[kTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      e[nt][0] = e[nt][1] = e[nt][2] = e[nt][3] = 0.f;
-      const int row = nt * 8 + g;
-#pragma unroll
-      for (int kk = 0; kk < KE; ++kk)
-        mma16816(e[nt], qa[kk], ss32[(row * LD) / 2 + kk * 8 + t],
-                 ss32[(row * LD) / 2 + kk * 8 + 4 + t]);
-    }
-
-    // mask the ragged tail, then the online max (the tile holds at least
-    // one pixel < N, so the new max is finite)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      const int col = t0 + nt * 8 + 2 * t;
-      if (col >= N) e[nt][0] = e[nt][2] = -INFINITY;
-      if (col + 1 >= N) e[nt][1] = e[nt][3] = -INFINITY;
-      mx[0] = fmaxf(mx[0], fmaxf(e[nt][0], e[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(e[nt][2], e[nt][3]));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float mn = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = __expf(m[i] - mn);
-      m[i] = mn;
-    }
-
-    float zs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      e[nt][0] = __expf(e[nt][0] - m[0]);
-      e[nt][1] = __expf(e[nt][1] - m[0]);
-      e[nt][2] = __expf(e[nt][2] - m[1]);
-      e[nt][3] = __expf(e[nt][3] - m[1]);
-      zs[0] += e[nt][0] + e[nt][1];
-      zs[1] += e[nt][2] + e[nt][3];
-    }
-    z[0] = z[0] * alpha[0] + zs[0];
-    z[1] = z[1] * alpha[1] + zs[1];
-
-    // p (bf16) as the A operand of acc += P . S_tile
-    uint32_t pa[kTile / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      pa[kk][0] = pack_bf16(e[2 * kk][0], e[2 * kk][1]);
-      pa[kk][1] = pack_bf16(e[2 * kk][2], e[2 * kk][3]);
-      pa[kk][2] = pack_bf16(e[2 * kk + 1][0], e[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(e[2 * kk + 1][2], e[2 * kk + 1][3]);
-    }
-#pragma unroll
-    for (int ne = 0; ne < 2 * KE; ++ne) {
-      acc[ne][0] *= alpha[0];
-      acc[ne][1] *= alpha[0];
-      acc[ne][2] *= alpha[1];
-      acc[ne][3] *= alpha[1];
-      const int row = ne * 8 + g;
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk)
-        mma16816(acc[ne], pa[kk], st32[(row * LDT) / 2 + kk * 8 + t],
-                 st32[(row * LDT) / 2 + kk * 8 + 4 + t]);
-    }
-  }
-
-  z[0] = quad_sum(z[0]);
-  z[1] = quad_sum(z[1]);
-  const size_t base = ((size_t)b * n_chunks + c) * Q;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + 8 * i;
-    if (row >= Q) continue;
-    if (t == 0) {
-      part_m[base + row] = m[i];
-      part_z[base + row] = z[i];
-    }
-    float* out = part_acc + (base + row) * E;
-#pragma unroll
-    for (int ne = 0; ne < 2 * KE; ++ne) {
-      const int col = ne * 8 + 2 * t;
-      if (col < E) {
-        out[col] = acc[ne][2 * i];
-        out[col + 1] = acc[ne][2 * i + 1];
-      }
-    }
-  }
-}
-
-// summary, pass 2: log-sum-exp merge of the chunk partials, one thread per
-// (q, e) of one batch row; the threads of e == 0 also write the row's max m
-// and partition z, the residuals of the backward pass.
-__global__ void sql_summary_merge(const float* __restrict__ part_m,
-                                  const float* __restrict__ part_z,
-                                  const float* __restrict__ part_acc,
-                                  float* __restrict__ out, float* __restrict__ m_out,
-                                  float* __restrict__ z_out, int n_chunks, int Q, int E) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q * E) return;
-  const int qi = i / E;
-  const float* pm = part_m + (size_t)b * n_chunks * Q + qi;
-  const float* pz = part_z + (size_t)b * n_chunks * Q + qi;
-  const float* pa = part_acc + (size_t)b * n_chunks * Q * E + i;
-  float mx = -INFINITY;
-  for (int c = 0; c < n_chunks; ++c) mx = fmaxf(mx, pm[(size_t)c * Q]);
-  float zsum = 0.f, asum = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    const float w = expf(pm[(size_t)c * Q] - mx);
-    zsum += w * pz[(size_t)c * Q];
-    asum += w * pa[(size_t)c * Q * E];
-  }
-  out[(size_t)b * Q * E + i] = asum / zsum;
-  if (i - qi * E == 0) {
-    m_out[(size_t)b * Q + qi] = mx;
-    z_out[(size_t)b * Q + qi] = zsum;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -637,6 +441,344 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+
+// d += A . B, m64nNk16 for N = 32, 64, 96, 128: A from registers (an mma A
+// fragment a warp), B from shared memory MN-major (the descriptor's
+// transpose bit, taken for bf16): B[k][n] with n contiguous, as an S tile
+// [px][E] lies for the P.S product.
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[48], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Shared-memory descriptor of an S tile [kSumPx][EP] in the core layout as
+// the MN-major B operand of P.S (k = pixel, n = e): the two 8-pixel core
+// matrices of a k16 step EP / 8 * 128 bytes apart (leading byte offset),
+// the 8-wide e blocks 128 bytes apart (stride byte offset), no swizzle.
+// The next k16 step starts 2 * EP * 16 bytes on.
+__device__ __forceinline__ uint64_t core_desc_mn(uint32_t addr, int EP) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)((EP / 8 * 128) >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// summary, pass 1: one block per (chunk of N, b), one warpgroup per 64
+// queries (NWG = 1 for Q <= 64, 2 up to 128), 64-pixel tiles of S in a ring
+// of kSumStages stages by cp.async. Per tile, warpgroup wg:
+//   e   = Q[64wg..] . S_tile^T  [64 q, 64 px]  wgmma, both operands in
+//                                              shared memory (K-major)
+//   online softmax over the pixels (row max, rescale), p = exp(e - m)
+//   acc = acc * alpha + bf16(p) . S_tile       wgmma, p as the register A
+//                                              operand, S_tile as the
+//                                              MN-major B operand
+// then writes the chunk's partial (m, z, acc[Q,E]).
+// ---------------------------------------------------------------------------
+constexpr int kSumPx = 64;      // pixels a tile: the energy's N, the P.S product's K
+constexpr int kSumStages = 3;   // S tiles in flight or in use
+static_assert(kSumStages == 3, "the loop waits for all but one copy group");
+
+__host__ __device__ constexpr size_t summary_smem(int NWG, int KE) {
+  return ((size_t)64 * NWG + (size_t)kSumStages * kSumPx) * 16 * KE * 2;
+}
+
+template <int KE, int NWG>  // EP = 16 * KE: E padded to 32, 64, 96 or 128; QN = 64 * NWG
+__global__ void __launch_bounds__(128 * NWG, KE <= 4 ? 2 : 1) sql_summary_partial(
+    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ q,
+    float* __restrict__ part_m, float* __restrict__ part_z, float* __restrict__ part_acc,
+    int N, int Q, int E, int chunk) {
+  constexpr int EP = 16 * KE, QN = 64 * NWG, kThreads = 128 * NWG;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* qs = smem;              // Q [QN][EP], core layout, zero past Q and E
+  unsigned char* ss = qs + QN * EP * 2;  // kSumStages S tiles [kSumPx][EP], core layout
+
+  const int b = blockIdx.y, c = blockIdx.x, n_chunks = gridDim.x;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* sb = s + (size_t)b * N * E;
+  const uint32_t ss_a = smem_addr(ss), tile_bytes = kSumPx * EP * 2;
+  const int tile0 = c * (chunk / kSumPx);
+  const int n_it = min(chunk / kSumPx, (N + kSumPx - 1) / kSumPx - tile0);
+
+  // tile tile0 + it into stage it % kSumStages by cp.async, 16 bytes (8 e of
+  // one pixel) a copy, pixels fastest: 8 neighbouring lanes fill one core
+  // matrix; zero past N and past E. One commit group a call, empty past the
+  // chunk's end.
+  auto load_tile = [&](int it) {
+    if (it < n_it) {
+      const int p0 = (tile0 + it) * kSumPx;
+      const uint32_t dst = ss_a + (it % kSumStages) * tile_bytes;
+#pragma unroll
+      for (int j = 0; j < kSumPx * EP / 8 / kThreads; ++j) {
+        const int i = tid + j * kThreads, r = i % kSumPx, k = (i / kSumPx) * 8;
+        const bool valid = p0 + r < N && k < E;
+        cp_async16(dst + core_at(r, k, EP), valid ? sb + (size_t)(p0 + r) * E + k : sb, valid);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int i = tid; i < QN * EP / 8; i += kThreads) {  // Q, in tile 0's group
+    const int r = i % QN, k = (i / QN) * 8;
+    const bool valid = r < Q && k < E;
+    cp_async16(smem_addr(qs) + core_at(r, k, EP), valid ? q + ((size_t)b * Q + r) * E + k : q,
+               valid);
+  }
+#pragma unroll
+  for (int it = 0; it < kSumStages - 1; ++it) load_tile(it);
+
+  // this warpgroup's 64 query rows; the lane holds rows 16 * warp + g and
+  // + 8 of them, columns 8j + 2t (+1) of every accumulator
+  const uint64_t q_desc = core_desc(smem_addr(qs) + wg * 64 * EP * 2, EP);
+  float m[2] = {-INFINITY, -INFINITY};  // running row max
+  float z[2] = {0.f, 0.f};              // this lane's share of the row sums
+  float acc[EP / 2];
+#pragma unroll
+  for (int i = 0; i < EP / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_one();  // this thread's copies of tile it (and Q) landed
+    fence_async_smem();
+    __syncthreads();  // everyone's copies landed; everyone is done with tile it - 1
+    load_tile(it + kSumStages - 1);  // into tile it - 1's stage
+    const uint32_t st_a = ss_a + (it % kSumStages) * tile_bytes;
+
+    // energy [64 q, 64 px]; the first product of the chain overwrites e
+    float e[kSumPx / 2];
+    fence_regs(e);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KE; ++kk)
+      wgmma_ss(e, q_desc + 16 * kk, core_desc(st_a, EP) + 16 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(e);
+
+    // the ragged tail (the tile holds at least one pixel < N, so the new
+    // max is finite), then the online max
+    const int p0 = (tile0 + it) * kSumPx;
+    if (p0 + kSumPx > N) {
+#pragma unroll
+      for (int j = 0; j < kSumPx / 8; ++j) {
+        const int col = p0 + 8 * j + 2 * t;
+        if (col >= N) e[4 * j] = e[4 * j + 2] = -INFINITY;
+        if (col + 1 >= N) e[4 * j + 1] = e[4 * j + 3] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kSumPx / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(e[4 * j], e[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(e[4 * j + 2], e[4 * j + 3]));
+    }
+    float alpha[2], ml[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mn = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = ex2((m[i] - mn) * kLog2e);  // 0 on the first tile
+      m[i] = mn;
+      ml[i] = mn * kLog2e;
+    }
+    // p = exp(e - m) = 2^(e log2(e) - m log2(e)), z sums it in float32
+    float zs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kSumPx / 8; ++j) {
+      e[4 * j] = ex2(fmaf(e[4 * j], kLog2e, -ml[0]));
+      e[4 * j + 1] = ex2(fmaf(e[4 * j + 1], kLog2e, -ml[0]));
+      e[4 * j + 2] = ex2(fmaf(e[4 * j + 2], kLog2e, -ml[1]));
+      e[4 * j + 3] = ex2(fmaf(e[4 * j + 3], kLog2e, -ml[1]));
+      zs[0] += e[4 * j] + e[4 * j + 1];
+      zs[1] += e[4 * j + 2] + e[4 * j + 3];
+    }
+    z[0] = z[0] * alpha[0] + zs[0];
+    z[1] = z[1] * alpha[1] + zs[1];
+
+    // bf16(p) is the A fragment of the P.S product as it lies: the
+    // accumulator columns 16kk..16kk+15 are k-step kk
+    uint32_t pa[kSumPx / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kSumPx / 16; ++kk) {
+      pa[kk][0] = pack_bf16(e[8 * kk], e[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(e[8 * kk + 2], e[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(e[8 * kk + 4], e[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(e[8 * kk + 6], e[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int j = 0; j < EP / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSumPx / 16; ++kk)
+      wgmma_rs_mn(acc, pa[kk], core_desc_mn(st_a + kk * 2 * EP * 16, EP));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  z[0] = quad_sum(z[0]);
+  z[1] = quad_sum(z[1]);
+  const size_t base = ((size_t)b * n_chunks + c) * Q;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 64 * wg + 16 * warp + g + 8 * i;
+    if (row >= Q) continue;
+    if (t == 0) {
+      part_m[base + row] = m[i];
+      part_z[base + row] = z[i];
+    }
+    float* out = part_acc + (base + row) * E;
+#pragma unroll
+    for (int j = 0; j < EP / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < E)  // E % 8 == 0, so col + 1 < E too
+        *reinterpret_cast<float2*>(out + col) = make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// summary, pass 2: the log-sum-exp merge of one batch row's chunk partials
+// for one query, a block of kMergeWarps warps a (b, q) row. Every warp
+// finds the row max over the chunks and the partition z; warp w sums the
+// rescaled accumulators of chunks w, w + kMergeWarps, ... (lane l owns
+// columns l, l + 32, ...), and the warps' sums add in warp order: a fixed
+// order, no atomics, so two calls give the same bits. Thread 0 also
+// writes the row's max m and partition z, the backward pass's residuals.
+constexpr int kMergeWarps = 4;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(32 * kMergeWarps) sql_summary_merge(
+    const float* __restrict__ part_m, const float* __restrict__ part_z,
+    const float* __restrict__ part_acc, float* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ z_out, int n_chunks, int Q, int E) {
+  __shared__ float sums[kMergeWarps][kMaxE];
+  const int row = blockIdx.x, b = row / Q, qi = row - b * Q;  // row = b * Q + qi
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* pm = part_m + (size_t)b * n_chunks * Q + qi;  // chunk c at c * Q
+  const float* pz = part_z + (size_t)b * n_chunks * Q + qi;
+  const float* pa = part_acc + ((size_t)b * n_chunks * Q + qi) * E;  // chunk c at c * Q * E
+  float mx = -INFINITY;
+  for (int c = lane; c < n_chunks; c += 32) mx = fmaxf(mx, pm[(size_t)c * Q]);
+  mx = warp_max(mx);
+  float zsum = 0.f;
+  for (int c = lane; c < n_chunks; c += 32) zsum += __expf(pm[(size_t)c * Q] - mx) * pz[(size_t)c * Q];
+  zsum = warp_sum(zsum);
+  float a[kMaxE / 32];
+#pragma unroll
+  for (int i = 0; i < kMaxE / 32; ++i) a[i] = 0.f;
+#pragma unroll 4
+  for (int c = warp; c < n_chunks; c += kMergeWarps) {
+    const float w = __expf(pm[(size_t)c * Q] - mx);
+    const float* pc = pa + (size_t)c * Q * E;
+#pragma unroll
+    for (int i = 0; i < kMaxE / 32; ++i) {
+      const int col = lane + 32 * i;
+      if (col < E) a[i] += w * pc[col];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxE / 32; ++i) {
+    const int col = lane + 32 * i;
+    if (col < E) sums[warp][col] = a[i];
+  }
+  __syncthreads();
+  for (int col = threadIdx.x; col < E; col += 32 * kMergeWarps) {
+    float v = sums[0][col];
+#pragma unroll
+    for (int w = 1; w < kMergeWarps; ++w) v += sums[w][col];
+    out[(size_t)row * E + col] = v / zsum;
+  }
+  if (threadIdx.x == 0) {
+    m_out[row] = mx;
+    z_out[row] = zsum;
+  }
+}
 
 __host__ __device__ constexpr size_t depth_smem(int QN, int DN, int EP) {
   return 2 * (size_t)DN * sizeof(float) +
@@ -1458,16 +1600,22 @@ cudaError_t launch_depth(cudaStream_t st, const __nv_bfloat16* s, const __nv_bfl
   return cudaGetLastError();
 }
 
-template <int KE>
-cudaError_t launch_summary_partial(dim3 grid, dim3 block, size_t smem, cudaStream_t stream,
-                                   const __nv_bfloat16* s, const __nv_bfloat16* q,
-                                   float* part_m, float* part_z, float* part_acc,
-                                   int N, int Q, int E, int chunk) {
-  cudaError_t err = cudaFuncSetAttribute(sql_summary_partial<KE>,
+template <int KE, int NWG>
+int summary_blocks() {
+  return resident_blocks(sql_summary_partial<KE, NWG>, 128 * NWG, summary_smem(NWG, KE));
+}
+
+template <int KE, int NWG>
+cudaError_t launch_summary_partial(dim3 grid, cudaStream_t stream, const __nv_bfloat16* s,
+                                   const __nv_bfloat16* q, float* part_m, float* part_z,
+                                   float* part_acc, int N, int Q, int E, int chunk) {
+  constexpr size_t smem = summary_smem(NWG, KE);
+  static_assert(smem <= kMaxSmem, "summary: shared memory");
+  cudaError_t err = cudaFuncSetAttribute(sql_summary_partial<KE, NWG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  sql_summary_partial<KE><<<grid, block, smem, stream>>>(s, q, part_m, part_z, part_acc, N, Q,
-                                                         E, chunk);
+  sql_summary_partial<KE, NWG><<<grid, 128 * NWG, smem, stream>>>(s, q, part_m, part_z, part_acc,
+                                                                  N, Q, E, chunk);
   return cudaGetLastError();
 }
 
@@ -1475,44 +1623,64 @@ cudaError_t launch_summary_partial(dim3 grid, dim3 block, size_t smem, cudaStrea
 
 extern "C" {
 
+// E tiles of 16 the summary forward and the backward kernels are compiled
+// for: E padded to 32, 64, 96 or 128.
+int bwd_e_tiles(int E) { return 2 * ((E + 31) / 32); }
+
 // Pixels per summary block: the wrapper allocates part_m/part_z [B,C,Q] and
 // part_acc [B,C,Q,E] float32 with C = ceil(N / chunk); chunk % 64 == 0.
 // out [B,Q,E], m_out and z_out [B,Q] float32.
 int sql_summary_fwd(const void* s, const void* q, void* part_m, void* part_z, void* part_acc,
                     void* out, void* m_out, void* z_out, int B, int N, int Q, int E, int chunk,
                     void* stream) {
-  if (!shapes_ok(B, N, Q, E) || chunk <= 0 || chunk % kTile != 0) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(B, N, Q, E) || chunk <= 0 || chunk % kSumPx != 0)
+    return (int)cudaErrorInvalidValue;
   const int n_chunks = (N + chunk - 1) / chunk;
-  const int QP = round_up(Q, 16), EP = round_up(E, 16);
-  const size_t smem = ((size_t)QP * (EP + 8) + (size_t)kTile * (EP + 8) +
-                       (size_t)EP * (kTile + 8)) * sizeof(__nv_bfloat16);
-  const dim3 grid(n_chunks, B), block(32 * (QP / 16));
+  const dim3 grid(n_chunks, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* sp = static_cast<const __nv_bfloat16*>(s);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   auto* pm = static_cast<float*>(part_m);
   auto* pz = static_cast<float*>(part_z);
   auto* pa = static_cast<float*>(part_acc);
+  const bool wide = Q > 64;
   cudaError_t err;
-  switch (EP / 16) {
-#define SQL_SUMMARY_CASE(KE) \
-  case KE: err = launch_summary_partial<KE>(grid, block, smem, st, sp, qp, pm, pz, pa, N, Q, E, chunk); break;
-    SQL_SUMMARY_CASE(1)
+  switch (bwd_e_tiles(E)) {
+#define SQL_SUMMARY_CASE(KE)                                                                \
+  case KE:                                                                                  \
+    err = wide ? launch_summary_partial<KE, 2>(grid, st, sp, qp, pm, pz, pa, N, Q, E, chunk) \
+               : launch_summary_partial<KE, 1>(grid, st, sp, qp, pm, pz, pa, N, Q, E, chunk); \
+    break;
     SQL_SUMMARY_CASE(2)
-    SQL_SUMMARY_CASE(3)
     SQL_SUMMARY_CASE(4)
-    SQL_SUMMARY_CASE(5)
     SQL_SUMMARY_CASE(6)
-    SQL_SUMMARY_CASE(7)
     SQL_SUMMARY_CASE(8)
 #undef SQL_SUMMARY_CASE
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  sql_summary_merge<<<dim3((Q * E + 255) / 256, B), 256, 0, st>>>(
-      pm, pz, pa, static_cast<float*>(out), static_cast<float*>(m_out),
-      static_cast<float*>(z_out), n_chunks, Q, E);
+  sql_summary_merge<<<B * Q, 32 * kMergeWarps, 0, st>>>(pm, pz, pa, static_cast<float*>(out),
+                                                         static_cast<float*>(m_out),
+                                                         static_cast<float*>(z_out), n_chunks, Q, E);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the summary forward's first pass that one SM of the current
+// card holds at once for Q queries and embeddings of E; negative: a CUDA
+// error, negated. The wrapper sizes its chunks (one wave) from it.
+int sql_summary_blocks_per_sm(int Q, int E) {
+  if (E <= 0 || E > kMaxE || E % 8 != 0 || Q <= 0 || Q > kMaxQ) return -(int)cudaErrorInvalidValue;
+  const bool wide = Q > 64;
+  switch (bwd_e_tiles(E)) {
+#define SQL_SUMMARY_BLOCKS_CASE(KE) \
+  case KE: return wide ? summary_blocks<KE, 2>() : summary_blocks<KE, 1>();
+    SQL_SUMMARY_BLOCKS_CASE(2)
+    SQL_SUMMARY_BLOCKS_CASE(4)
+    SQL_SUMMARY_BLOCKS_CASE(6)
+    SQL_SUMMARY_BLOCKS_CASE(8)
+#undef SQL_SUMMARY_BLOCKS_CASE
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 int sql_depth_fwd(const void* s, const void* q, const void* w, const void* bias,
@@ -1533,10 +1701,6 @@ int sql_depth_fwd(const void* s, const void* q, const void* w, const void* bias,
   return (int)(wide_d ? launch_depth<64, 128>(st, sp, qp, wp, bp, cp, op, B, N, Q, E, D)
                       : launch_depth<64, 64>(st, sp, qp, wp, bp, cp, op, B, N, Q, E, D));
 }
-
-// E tiles of 16 a backward kernel is compiled for: E padded to 32, 64, 96
-// or 128.
-int bwd_e_tiles(int E) { return 2 * ((E + 31) / 32); }
 
 // Blocks of the summary (depth = 0) or bins (depth = 1) backward kernel
 // that one SM of the current card holds at once for embeddings of E and D

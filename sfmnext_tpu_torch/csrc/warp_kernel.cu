@@ -81,25 +81,61 @@
 // steps make, whose corners are L1 hits already, as the box reduction, the
 // copy and the barrier came on top.
 //
-// warp_bwd_img: the scatter is the transpose of the forward's gather: one
-// thread per output pixel recomputes its four corners and weights exactly
-// as the forward and adds g*w into dimg with float32 atomicAdd
-// (fire-and-forget reductions in L2). A near-identity warp sends each
-// image pixel about four adds, from neighbouring threads, so contention is
-// low. The sums land in a different order on every run: the result is not
-// bit-reproducible, and its error against a sequential sum is a few
-// float32 roundings of the largest partial sum. dimg is zeroed on the
-// stream first.
+// warp_bwd_img is the transpose of the forward's gather, a scatter: every
+// sample adds g*w into its four corners, 4*C adds a pixel (12 at C = 3),
+// as float32 atomics that resolve in L2 (L1 never helps an atomic). A
+// warp's add to one corner of 32 consecutive samples touches 32 floats C
+// apart: at C = 1 whole 32-byte sectors, at C = 3 three times the sectors
+// for the same floats. A thread takes one output pixel, and:
+//   - at C = 1 a block takes 256 consecutive pixels of the plane (flat
+//     order, as a one-pass scatter would) and adds straight into dimg,
+//     with no barrier. Where lane l's top-left corner is lane l - 1's
+//     top-right (same row, next column: a smooth warp), lane l adds lane
+//     l - 1's top-right and bottom-right shares into its own top-left and
+//     bottom-left ones (a shuffle) and lane l - 1 skips them: half the adds
+//     on the indoor step's depth warps;
+//   - at C > 1 a block owns a tile of 8 x 32 output pixels, a warp one row
+//     of it, and each warp finds the box of its corners in the image with a
+//     warp reduction. A warp whose box passes 8 rows' worth of its pixels
+//     (widely scattered samples) adds straight into dimg as above. The
+//     other warps' boxes meet in the tile's corner box (one block
+//     reduction); where it holds at most 2x the tile's pixels and fits the
+//     staging floats (6 KB at C = 3), the block zeroes it in shared memory,
+//     adds its samples' corners there (shared-memory atomicAdd: a
+//     compare-and-swap loop on sm_90, as the SASS shows, but no L2 round
+//     trip) and flushes the box once per touched element as 16-byte float4
+//     atomicAdd (red.global.add.v4.f32, cc 9.x) on the 16-byte aligned runs
+//     of each row (each box row shifted to its run's alignment in dimg) and
+//     scalar adds at the runs' ends, all-zero words skipped; else they add
+//     directly too. Neighbouring tiles' boxes overlap by the warp's
+//     displacement, which is why the flush adds. The indoor step's warps of
+//     rectified frames (C = 3) are smooth and stage: their boxes are about
+//     1.5x the tile.
+// The branches are one kernel, chosen per warp and tile from the data;
+// none is a fallback for a failure. dimg is zeroed on the stream first
+// (cudaMemsetAsync): a tile owns no part of dimg, so the zeroing cannot
+// fold into the tiles. The sums land in a different order on every run
+// (atomics in shared memory and in L2): the result is not bit-reproducible,
+// and its error against a sequential sum is a few float32 roundings of the
+// largest partial sum.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;     // threads a block of warp_fwd / warp_bwd
-constexpr int kPix = 4;           // output pixels a thread of warp_fwd / warp_bwd
-constexpr int kImgThreads = 256;  // threads a block of warp_bwd_img
+constexpr int kThreads = 128;  // threads a block of warp_fwd / warp_bwd
+constexpr int kPix = 4;        // output pixels a thread of warp_fwd / warp_bwd
+// warp_bwd_img: a block owns a tile of kTileRows x kTileCols output
+// pixels, a warp one row of it, a thread one pixel
+constexpr int kTileRows = 8;
+constexpr int kTileCols = 32;
+constexpr int kImgThreads = kTileRows * kTileCols;  // 256
+constexpr int kBoxPx = 2 * kImgThreads;             // the largest corner box staged
+constexpr int kWarpBoxPx = 8 * kTileCols;           // a warp's samples scatter past this box
+constexpr int kStageFloats = 12288;                 // 48 KB: the staging cap at any C
 
 // The four corners of one sample: their offsets into the image plane (in
 // floats, i.e. pixel index * C, below 2^31), their weights, and which lie
@@ -109,6 +145,7 @@ struct Corners {
   float w[4];
   bool in[4];
   float wy, wx;
+  float y0, x0;  // the top-left corner (any float in zeros mode)
 };
 
 template <bool kZeros>
@@ -130,6 +167,8 @@ __device__ __forceinline__ Corners corners(float fy, float fx, int H, int W, int
   }
   k.wy = wy;
   k.wx = wx;
+  k.y0 = y0;
+  k.x0 = x0;
   k.w[0] = (1.f - wy) * (1.f - wx);
   k.w[1] = (1.f - wy) * wx;
   k.w[2] = wy * (1.f - wx);
@@ -335,22 +374,159 @@ __global__ void __launch_bounds__(kThreads) warp_bwd_kernel(
   store_px<1>(dfx + base, p, ok, vec, gx);
 }
 
-// One thread per output pixel; dimg [B,H,W,C] zeroed before the launch.
-template <bool kZeros>
-__global__ void __launch_bounds__(kImgThreads) warp_bwd_img_kernel(
-    const float* __restrict__ fy, const float* __restrict__ fx,
-    const float* __restrict__ g, float* __restrict__ dimg, int H, int W, int C,
-    long long per_batch, long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float* di = dimg + (i / per_batch) * (long long)H * W * C;
-  const Corners k = corners<kZeros>(__ldg(fy + i), __ldg(fx + i), H, W, C);
-  const float* gi = g + i * C;
-  for (int c = 0; c < C; ++c) {
-    const float gc = __ldg(gi + c);
+// The adds of one sample into dimg (plane di), channel by channel: g*w to
+// each corner in the image, less the top-right and bottom-right shares that
+// lane l + 1 takes (to_right), plus lane l - 1's (from_left; see the
+// header). Called by every lane of a warp (the shuffles); gp is the
+// sample's g.
+template <int kC>
+__device__ __forceinline__ void add_direct(float* __restrict__ di, const Corners& k,
+                                           const float* __restrict__ gp, bool ok, bool hit,
+                                           bool to_right, bool from_left, int C) {
+  constexpr unsigned kAll = 0xffffffffu;
+#pragma unroll
+  for (int c = 0; c < (kC > 0 ? kC : C); ++c) {
+    const float gc = ok ? __ldg(gp + c) : 0.f;
+    float v[4] = {gc * k.w[0], gc * k.w[1], gc * k.w[2], gc * k.w[3]};
+    const float left_top = __shfl_up_sync(kAll, v[1], 1);
+    const float left_bot = __shfl_up_sync(kAll, v[3], 1);
+    if (from_left) {
+      v[0] += left_top;
+      v[2] += left_bot;
+    }
+    if (!hit) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if (k.in[j]) atomicAdd(di + k.off[j] + c, gc * k.w[j]);
+      if (k.in[j] && !(to_right && (j & 1))) atomicAdd(di + k.off[j] + c, v[j]);
+    }
+  }
+}
+
+// A block per tile of kTileRows x kTileCols output pixels (tile on
+// blockIdx.x, row-major over tiles_x tiles a row; batch on blockIdx.y);
+// dimg [B,H,W,C] zeroed before the launch. Warp w takes tile row w, lane l
+// its pixel l (at C = 1 block i takes the plane's pixels from 256 i
+// instead): one instruction of a warp spans 32 consecutive pixels. See the
+// header for the branches.
+template <bool kZeros, int kC>
+__global__ void __launch_bounds__(kImgThreads) warp_bwd_img_kernel(
+    const float* __restrict__ fy, const float* __restrict__ fx,
+    const float* __restrict__ g, float* __restrict__ dimg, int H, int W, int C, int Ho,
+    int Wo, int tiles_x, int stage_floats) {
+  extern __shared__ __align__(16) float box[];
+  __shared__ int part[kImgThreads / 32][4];
+  constexpr unsigned kAll = 0xffffffffu;
+  const long long plane = (long long)blockIdx.y * H * W * C;
+  float* const di = dimg + plane;            // this image's plane
+  const int plane_sh = (int)(plane & 3);     // its offset from a 16-byte boundary, in floats
+  const int ty = blockIdx.x / tiles_x, tx = blockIdx.x - ty * tiles_x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // C = 1 takes no box: its blocks walk the plane in flat order, 256
+  // consecutive pixels a block (a grid of ceil(Ho*Wo / 256) blocks)
+  const int flat = blockIdx.x * kImgThreads + threadIdx.x;
+  const int oy = kC == 1 ? flat / Wo : ty * kTileRows + warp;
+  const int ox = kC == 1 ? flat - oy * Wo : tx * kTileCols + lane;
+  const bool ok = oy < Ho && ox < Wo;
+  const long long px = (long long)blockIdx.y * Ho * Wo + (ok ? oy * Wo + ox : 0);
+  const Corners k = corners<kZeros>(ok ? __ldg(fy + px) : 0.f, ok ? __ldg(fx + px) : 0.f, H, W, C);
+  const bool hit = ok && (k.in[0] || k.in[1] || k.in[2] || k.in[3]);
+  // a corner in the image puts y0 in [-1, H-1] and x0 in [-1, W-1]
+  const int y0 = hit ? (int)k.y0 : 0, x0 = hit ? (int)k.x0 : 0;
+  const int ry0 = __shfl_down_sync(kAll, y0, 1), rx0 = __shfl_down_sync(kAll, x0, 1);
+  const bool rhit = __shfl_down_sync(kAll, (int)hit, 1);
+  const bool to_right = lane < 31 && hit && rhit && ry0 == y0 && rx0 == x0 + 1;
+  const bool from_left = __shfl_up_sync(kAll, (int)to_right, 1) && lane > 0;
+  const float* gp = g + px * C;
+
+  // at C = 1 a warp's adds to one corner are already 32 consecutive floats,
+  // whole 32-byte sectors: staging buys nothing, and the tile adds directly
+  // with no barrier (the launch sends C = 1 to this instance)
+  if constexpr (kC == 1) {
+    add_direct<kC>(di, k, gp, ok, hit, to_right, from_left, C);
+    return;
+  }
+
+  // the box of the warp's corners in the image (a sample with no corner in
+  // the image adds nothing and leaves it alone); a warp whose box passes
+  // kWarpBoxPx scatters: it adds straight into dimg at once and leaves the
+  // tile's box alone
+  int lo_y = __reduce_min_sync(kAll, hit ? max(y0, 0) : INT_MAX);
+  int hi_y = __reduce_max_sync(kAll, hit ? min(y0 + 1, H - 1) : INT_MIN);
+  int lo_x = __reduce_min_sync(kAll, hit ? max(x0, 0) : INT_MAX);
+  int hi_x = __reduce_max_sync(kAll, hit ? min(x0 + 1, W - 1) : INT_MIN);
+  const bool scattered =
+      lo_y <= hi_y && (long long)(hi_y - lo_y + 1) * (hi_x - lo_x + 1) > kWarpBoxPx;
+  if (scattered) add_direct<kC>(di, k, gp, ok, hit, to_right, from_left, C);
+  if (lane == 0) {
+    part[warp][0] = scattered ? INT_MAX : lo_y;
+    part[warp][1] = scattered ? INT_MIN : hi_y;
+    part[warp][2] = scattered ? INT_MAX : lo_x;
+    part[warp][3] = scattered ? INT_MIN : hi_x;
+  }
+  __syncthreads();
+  lo_y = lo_x = INT_MAX;
+  hi_y = hi_x = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < kImgThreads / 32; ++w) {
+    lo_y = min(lo_y, part[w][0]);
+    hi_y = max(hi_y, part[w][1]);
+    lo_x = min(lo_x, part[w][2]);
+    hi_x = max(hi_x, part[w][3]);
+  }
+  if (lo_y > hi_y) return;  // every other warp's samples miss the image
+  const int bh = hi_y - lo_y + 1, bw = hi_x - lo_x + 1;
+  const int len = bw * C;            // floats a box row
+  const int S = (len + 3 + 3) & ~3;  // its stride: room to shift it to its run's alignment
+  if (bh * bw > kBoxPx || S > stage_floats / bh) {  // too large to stage: add directly
+    if (!scattered) add_direct<kC>(di, k, gp, ok, hit, to_right, from_left, C);
+    return;
+  }
+
+  // staged: box row r holds image row lo_y + r, its run of len floats from
+  // column lo_x shifted by the run's offset from a 16-byte boundary of
+  // dimg, zero around it
+  float4* box4 = reinterpret_cast<float4*>(box);
+  for (int i = threadIdx.x; i < bh * S / 4; i += kImgThreads)
+    box4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  if (!scattered && hit) {
+    // the corners' box rows at column x0 (in zeros padding a corner outside
+    // the image is dropped, its row offset unused)
+    const int sh0 = (plane_sh + (y0 * W + lo_x) * C) & 3;
+    const int sh1 = (plane_sh + ((y0 + 1) * W + lo_x) * C) & 3;
+    float* top = box + (y0 - lo_y) * S + sh0 + (x0 - lo_x) * C;
+    float* bot = top + S + sh1 - sh0;
+#pragma unroll
+    for (int c = 0; c < (kC > 0 ? kC : C); ++c) {
+      const float gc = __ldg(gp + c);
+      if (k.in[0]) atomicAdd(top + c, gc * k.w[0]);
+      if (k.in[1]) atomicAdd(top + C + c, gc * k.w[1]);
+      if (k.in[2]) atomicAdd(bot + c, gc * k.w[2]);
+      if (k.in[3]) atomicAdd(bot + C + c, gc * k.w[3]);
+    }
+  }
+  __syncthreads();
+
+  // flush: warp w takes box rows w, w + 8, ...; lane v the 16-byte words
+  // v, v + 32, ... of a row
+  for (int r = warp; r < bh; r += kImgThreads / 32) {
+    const int g0 = ((lo_y + r) * W + lo_x) * C;  // the row's run in the plane
+    const int sh = (plane_sh + g0) & 3;
+    float* dst = di + (g0 - sh);  // 16-byte aligned
+    const float4* src = reinterpret_cast<const float4*>(box + r * S);
+    for (int v = lane; 4 * v < sh + len; v += 32) {
+      const float4 a = src[v];
+      if (a.x == 0.f && a.y == 0.f && a.z == 0.f && a.w == 0.f) continue;
+      const int f = 4 * v;
+      if (f >= sh && f + 4 <= sh + len) {
+        atomicAdd(reinterpret_cast<float4*>(dst + f), a);
+      } else {
+        const float vals[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (f + i >= sh && f + i < sh + len && vals[i] != 0.f) atomicAdd(dst + f + i, vals[i]);
+        }
+      }
     }
   }
 }
@@ -423,11 +599,31 @@ int warp_bwd_img(const void* fy, const void* fx, const void* g, void* dimg, int 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(dimg, 0, sizeof(float) * (size_t)B * H * W * C, s);
   if (err != cudaSuccess) return (int)err;
-  const long long per_batch = (long long)Ho * Wo, total = per_batch * B;
-  auto kernel = zeros ? &warp_bwd_img_kernel<true> : &warp_bwd_img_kernel<false>;
-  kernel<<<(unsigned)((total + kImgThreads - 1) / kImgThreads), kImgThreads, 0, s>>>(
-      static_cast<const float*>(fy), static_cast<const float*>(fx),
-      static_cast<const float*>(g), static_cast<float*>(dimg), H, W, C, per_batch, total);
+  // C = 1 walks the plane in flat order, any other C in tiles
+  const int tiles_x = (Wo + kTileCols - 1) / kTileCols;
+  const long long n_blocks = C == 1 ? ((long long)Ho * Wo + kImgThreads - 1) / kImgThreads
+                                    : (long long)tiles_x * ((Ho + kTileRows - 1) / kTileRows);
+  const dim3 blocks((unsigned)n_blocks, (unsigned)B);
+  // shared memory for a box of 2x the tile's pixels, capped at 48 KB
+  const int stage_floats = (int)min((long long)kBoxPx * C, (long long)kStageFloats);
+  const size_t smem = sizeof(float) * stage_floats;
+  const auto* py = static_cast<const float*>(fy);
+  const auto* px = static_cast<const float*>(fx);
+  const auto* pg = static_cast<const float*>(g);
+  auto* pd = static_cast<float*>(dimg);
+#define WARP_IMG_LAUNCH(Z, KC)                                                    \
+  warp_bwd_img_kernel<Z, KC><<<blocks, kImgThreads, smem, s>>>(py, px, pg, pd, H, W, C, Ho, \
+                                                               Wo, tiles_x, stage_floats)
+  if (zeros) {
+    if (C == 3) WARP_IMG_LAUNCH(true, 3);
+    else if (C == 1) WARP_IMG_LAUNCH(true, 1);
+    else WARP_IMG_LAUNCH(true, 0);
+  } else {
+    if (C == 3) WARP_IMG_LAUNCH(false, 3);
+    else if (C == 1) WARP_IMG_LAUNCH(false, 1);
+    else WARP_IMG_LAUNCH(false, 0);
+  }
+#undef WARP_IMG_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -33,7 +33,7 @@ from sfmnext_tpu_torch.ops._build import check_tensor, require
 MAX_Q = 128
 MAX_D = 128
 MAX_E = 128
-_TILE = 64  # pixels per block step in the forward kernels
+_TILE = 64  # pixels per tile of the summary forward
 _BWD_STEP = 128  # pixels per block step in the backward kernels
 
 
@@ -60,7 +60,7 @@ def _check_bins(features, queries, w, bias, centers):
     return b, n, q, e, d
 
 
-def _chunk(dev, b: int, n: int, blocks_per_sm: int, tile: int = _TILE) -> int:
+def _chunk(dev, b: int, n: int, blocks_per_sm: int, tile: int) -> int:
     """Pixels per block, in whole tiles of ``tile`` pixels, for about
     ``blocks_per_sm`` blocks per SM over the B*N pixels."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -69,17 +69,42 @@ def _chunk(dev, b: int, n: int, blocks_per_sm: int, tile: int = _TILE) -> int:
     return tile * -(-tiles // chunks)
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_blocks_per_sm(device_index: int, depth: bool, e: int, d: int) -> int:
-    """Blocks of a backward kernel (the bins head's with ``depth``) that
-    one SM of the card holds at once, as the card reports it for the
-    compiled kernel: one wave of blocks covers the card."""
+def _blocks_per_sm(name: str, device_index: int, *args: int) -> int:
+    """Blocks of a kernel that one SM of the card holds at once, as the
+    card reports it for the compiled kernel (``lib.<name>(*args)``): one
+    wave of blocks covers the card."""
     lib = _build.library()
     with torch.cuda.device(device_index):
-        blocks = lib.sql_bwd_blocks_per_sm(int(depth), e, d)
+        blocks = getattr(lib, name)(*args)
     if blocks <= 0:
-        _build.check_error(lib, -blocks or 1, "sql_bwd_blocks_per_sm")
+        _build.check_error(lib, -blocks or 1, name)
     return blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks_per_sm(device_index: int, depth: bool, e: int, d: int) -> int:
+    """Blocks of a backward kernel (the bins head's with ``depth``) an SM holds."""
+    return _blocks_per_sm("sql_bwd_blocks_per_sm", device_index, int(depth), e, d)
+
+
+@functools.lru_cache(maxsize=None)
+def _summary_blocks_per_sm(device_index: int, q: int, e: int) -> int:
+    """Blocks of the summary forward's first pass an SM holds."""
+    return _blocks_per_sm("sql_summary_blocks_per_sm", device_index, q, e)
+
+
+def _summary_chunk(dev, b: int, n: int, q: int, e: int) -> int:
+    """Pixels per summary block: one wave over the card, in whole tiles,
+    but no more chunks a batch row than keep the partials (m, z and the
+    [Q,E] accumulator, float32, a chunk) at a quarter of S's bytes, so that
+    the merge stays cheap at serving batch 1 (75 chunks at N = 81,920,
+    Q = 128, E = 32)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wave = _summary_blocks_per_sm(dev.index, q, e) * sms
+    cap = n * e // (8 * q * (e + 2))  # 4 q (e + 2) bytes a chunk <= 2 n e / 4
+    tiles = -(-n // _TILE)
+    chunks = max(1, min(wave // b, cap, tiles))
+    return _TILE * -(-tiles // chunks)
 
 
 def _bwd_chunk(dev, b: int, n: int, depth: bool, e: int, d: int) -> int:
@@ -96,8 +121,7 @@ def sql_summary_fwd(features: torch.Tensor, queries: torch.Tensor):
     if dev.type == "cpu":
         return sql_attention.sql_summary_fwd(features, queries)
     lib = _build.library()
-    # about two blocks per SM over all B*N pixels, in whole tiles
-    chunk = _chunk(dev, b, n, 2)
+    chunk = _summary_chunk(dev, b, n, q, e)
     n_chunks = -(-n // chunk)
     f32 = dict(device=dev, dtype=torch.float32)
     part_m = torch.empty((b, n_chunks, q), **f32)

@@ -18,7 +18,9 @@ coordinates, the cotangent and the outputs, each once). The forward and
 the coordinate gradient take four output pixels a thread (consecutive in
 border padding, 32 apart in zeros padding), the batch on the grid's y axis
 and 32-bit offsets inside one image plane and one output plane, with C = 1
-and 3 compiled in (``csrc/warp_kernel.cu`` says why). So the wrappers
+and 3 compiled in (``csrc/warp_kernel.cu`` says why); the image gradient
+takes a tile of 8 x 32 output pixels a block and, where a tile's samples
+are smooth and C > 1, adds them in shared memory first. So the wrappers
 raise on an image plane of 2^31 floats or more, on an output plane that
 reaches 2^31 floats once rounded up by one block's ``BLOCK_PIXELS``, and
 on more than 65,535 images. Each counts its launches per padding mode in

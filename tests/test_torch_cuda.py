@@ -21,7 +21,13 @@ gradient adds with float32 atomics, in another order on every run), at the
 steps' shapes and at the layouts the kernels treat apart: C other than 1
 and 3, output planes other than the image's, a ragged tail of pixels, a
 batch of 3 at an odd Ho*Wo (batches starting off a 16-byte boundary),
-coordinates far outside the image, smooth and widely scattered samples.
+coordinates far outside the image, smooth and widely scattered samples;
+the image gradient also on inputs chosen for each of its two per-tile
+branches (a corner box staged in shared memory, or direct adds), a mix of
+both, every sample on one point, and boxes clipped at every image edge.
+The summary forward is held at the main paths' shapes (batch 1, 4 and 8,
+the indoor N, E = 56 and 128, Q = 120, a ragged N), its residuals m and z
+against the plain version's, and two calls give the same bits.
 
 The SSIM kernels (flagship B=8, 320x1024, 2 warped and 2 identity
 sources; ragged shapes with H, W off the 16x32 tile, H = 4, 3 sources)
@@ -87,7 +93,19 @@ def _inputs(dev, shape, seed):
             torch.sort(centers, dim=1).values)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+# (B, H, W, Q, E, D) where the summary forward runs on the main paths:
+# serving batch 1, the flagship step (B 8), the indoor decoder (N 27,648),
+# the resnet18_lite decoder (Q 120, E 128), and a ragged N at batch 8
+SUMMARY_PATH_SHAPES = [
+    (1, 160, 512, 128, 32, 128),
+    (8, 160, 512, 128, 32, 128),
+    (8, 144, 192, 128, 32, 64),
+    (12, 96, 320, 120, 128, 128),
+    (8, 37, 53, 120, 56, 64),
+]
+
+
+@pytest.mark.parametrize("shape", SHAPES + SUMMARY_PATH_SHAPES, ids=str)
 def test_summary_kernel_matches_plain(dev, shape):
     feats, queries, *_ = _inputs(dev, shape, 0)
     before = sql_kernel.sql_summary.launches
@@ -96,6 +114,34 @@ def test_summary_kernel_matches_plain(dev, shape):
     assert sql_kernel.sql_summary.launches == before + 1
     want = sql_attention.sql_full_query(feats, queries)[1]
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[1], SHAPES[3], SHAPES[4]]
+                         + SUMMARY_PATH_SHAPES[:3], ids=str)
+def test_summary_residuals_match_plain(dev, shape):
+    """The backward pass's residuals: m, the true max of the energies over
+    all pixels (float32 sums of bf16 products, in another order: 1e-4), and
+    z, the sum of exp(energy - m) (the chunks' partial sums rescaled and
+    added, exp2 in hardware: 1e-4 relative)."""
+    feats, queries, *_ = _inputs(dev, shape, 10)
+    out, m, z = sql_kernel.sql_summary_fwd(feats, queries)
+    torch.cuda.synchronize()
+    want_out, want_m, want_z = sql_attention.sql_summary_fwd(feats, queries)
+    torch.testing.assert_close(out, want_out, rtol=0, atol=2e-2)
+    torch.testing.assert_close(m, want_m, rtol=0, atol=1e-4)
+    torch.testing.assert_close(z, want_z, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("shape", [SHAPES[0], SUMMARY_PATH_SHAPES[0], SHAPES[4]], ids=str)
+def test_summary_kernel_is_deterministic(dev, shape):
+    """Two calls of the summary forward agree bit for bit: the chunks'
+    partials merge in a fixed order, without atomics."""
+    feats, queries, *_ = _inputs(dev, shape, 11)
+    first = sql_kernel.sql_summary_fwd(feats, queries)
+    second = sql_kernel.sql_summary_fwd(feats, queries)
+    torch.cuda.synchronize()
+    for a, x in zip(first, second):
+        assert torch.equal(a, x)
 
 
 # (B, H, W, Q, E, D) where the depth forward runs on the main paths: a
@@ -279,6 +325,113 @@ def test_warp_kernels_match_plain_on_other_layouts(dev, layout, zeros):
     fy, fx = _off_border(fy, fx, h, w)
     gout = torch.randn(b, ho, wo, c, device=dev, generator=gen)
     _check_warp(img, fy.contiguous(), fx.contiguous(), gout, zeros)
+
+
+# warp_bwd_img's tiles of output pixels (a warp takes a row of one), the
+# box past which a warp's samples count as scattered, and the largest corner
+# box a tile stages in shared memory (csrc/warp_kernel.cu): a scattered
+# warp adds straight into the image gradient; at C > 1 the other warps of a
+# tile stage in shared memory where their box holds at most 2x the tile's
+# pixels and fits the staging floats, else (and at C = 1) they add directly
+IMG_TILE = (8, 32)
+IMG_WARP_BOX_PX = 8 * IMG_TILE[1]
+IMG_BOX_PX = 2 * IMG_TILE[0] * IMG_TILE[1]
+
+
+def _staged_tiles(fy, fx, h, w, c, zeros):
+    """Per output tile: True where warp_bwd_img stages a corner box, False
+    where every sample that touches the image adds directly, None where no
+    sample touches the image."""
+    if zeros:
+        y0, x0 = fy.floor(), fx.floor()
+    else:
+        y0 = fy.clamp(0, h - 1).floor().clamp(0, h - 2)
+        x0 = fx.clamp(0, w - 1).floor().clamp(0, w - 2)
+    hit = (y0 >= -1) & (y0 <= h - 1) & (x0 >= -1) & (x0 <= w - 1)  # a corner inside
+    b, ho, wo = fy.shape
+    th, tw = IMG_TILE
+    pad = (0, -wo % tw, 0, -ho % th)
+    big = float(2**30)
+
+    def per_warp(v, fill, reduce):  # [B, tiles_y, warps (tile rows), tiles_x]
+        v = torch.nn.functional.pad(torch.where(hit, v, torch.full_like(v, fill)), pad, value=fill)
+        return reduce(v.reshape(b, v.shape[1] // th, th, v.shape[2] // tw, tw), dim=4)
+
+    box = [per_warp(y0.clamp(min=0), big, torch.amin), per_warp((y0 + 1).clamp(max=h - 1), -big, torch.amax),
+           per_warp(x0.clamp(min=0), big, torch.amin), per_warp((x0 + 1).clamp(max=w - 1), -big, torch.amax)]
+    touched = (box[0] <= box[1]).any(dim=2)
+    scattered = (box[0] <= box[1]) & ((box[1] - box[0] + 1) * (box[3] - box[2] + 1) > IMG_WARP_BOX_PX)
+    lo_y, hi_y, lo_x, hi_x = (torch.where(scattered, torch.full_like(v, f), v).amin(dim=2) if f > 0
+                              else torch.where(scattered, torch.full_like(v, f), v).amax(dim=2)
+                              for v, f in zip(box, (big, -big, big, -big)))
+    bh, bw = hi_y - lo_y + 1, hi_x - lo_x + 1
+    stride = torch.div(bw * c + 6, 4, rounding_mode="floor") * 4
+    staged = (lo_y <= hi_y) & (bh * bw <= IMG_BOX_PX) & (bh * stride <= min(IMG_BOX_PX * c, 12288))
+    staged &= c > 1
+    return [None if not t else bool(st) for t, st in zip(touched.flatten().tolist(),
+                                                         staged.flatten().tolist())]
+
+
+# (B, H, W, C, coordinates, the tiles' branch): smooth samples stage every
+# tile's box at C > 1 and add directly at C = 1; samples jittered by 8 rows
+# and 40 columns make every warp scatter (direct adds); a mix of both in
+# one call, by tiles and by warps of one tile (these stage beside warps
+# that add directly); every sample on one point (all adds on 4 pixels, in
+# shared memory at C = 3 and in device memory at C = 1); samples stretched
+# past every image edge (boxes clipped there, whole tiles outside in zeros
+# padding) at H, W off the 8 x 32 tile; samples far outside; C = 1, 2 (the
+# channel loop) and 3
+IMG_GRAD_CASES = {
+    "smooth, 8x288x384x3": (8, 288, 384, 3, "smooth", "staged"),
+    "smooth, 2x288x384x1": (2, 288, 384, 1, "smooth", "direct"),
+    "smooth, 2x70x150x2": (2, 70, 150, 2, "smooth", "staged"),
+    "scattered, 2x288x384x3": (2, 288, 384, 3, "wide", "direct"),
+    "scattered, 2x160x320x1": (2, 160, 320, 1, "wide", "direct"),
+    "mixed, 2x96x320x3": (2, 96, 320, 3, "mixed", "both"),
+    "mixed warps, 2x96x320x3": (2, 96, 320, 3, "rows", "staged"),
+    "one point, 2x96x160x3": (2, 96, 160, 3, "point", "staged"),
+    "one point, 1x37x53x1": (1, 37, 53, 1, "point", "direct"),
+    "edges, 2x37x53x3": (2, 37, 53, 3, "edges", None),
+    "edges, 3x70x150x1": (3, 70, 150, 1, "edges", None),
+    "edges, 2x45x131x2": (2, 45, 131, 2, "edges", None),
+    "far, 2x70x150x3": (2, 70, 150, 3, "far", None),
+}
+
+
+@pytest.mark.parametrize("zeros", [False, True], ids=["border", "zeros"])
+@pytest.mark.parametrize("case", list(IMG_GRAD_CASES))
+def test_image_gradient_on_both_branches(dev, case, zeros):
+    b, h, w, c, coords, branch = IMG_GRAD_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case) + c)
+    img = torch.rand(b, h, w, c, device=dev, generator=gen)
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float32),
+                            torch.arange(w, device=dev, dtype=torch.float32), indexing="ij")
+    u = lambda: 2 * torch.rand(b, h, w, device=dev, generator=gen) - 1
+    if coords == "point":
+        fy, fx = torch.full_like(u(), 0.3 * h + 0.37), torch.full_like(u(), 0.6 * w + 0.21)
+    elif coords == "edges":  # past every edge by up to 3 pixels
+        fy, fx = ys * (h + 5) / (h - 1) - 2.5 + 0.4 * u(), xs * (w + 5) / (w - 1) - 2.5 + 0.4 * u()
+    else:
+        fy, fx = ys + 1.5 * u(), xs + 2.5 * u()
+        wide = (ys + 8 * u(), xs + 40 * u())
+        if coords == "wide":
+            fy, fx = wide
+        elif coords in ("mixed", "rows"):  # the right half or every other warp scattered
+            far = xs >= w // 2 if coords == "mixed" else (ys // 2) % 2 == 1
+            fy, fx = torch.where(far, wide[0], fy), torch.where(far, wide[1], fx)
+        elif coords == "far":
+            far = torch.rand(b, h, w, device=dev, generator=gen)
+            fy = torch.where(far < 0.1, torch.full_like(fy, 1e30), fy)
+            fx = torch.where(far > 0.9, torch.full_like(fx, -1e30), fx)
+    fy, fx = _off_border(fy, fx, h, w)
+    fy, fx = fy.contiguous(), fx.contiguous()
+    tiles = _staged_tiles(fy, fx, h, w, c, zeros)
+    if branch == "both":
+        assert True in tiles and False in tiles
+    elif branch:
+        assert all(t == (branch == "staged") for t in tiles)
+    gout = torch.randn(b, h, w, c, device=dev, generator=gen)
+    _check_warp(img, fy, fx, gout, zeros)
 
 
 def test_fused_ops_carry_gradients_on_the_card(dev):
