@@ -40,7 +40,8 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      coordinates a step makes (warp_frame's geometry at 8x320x1024, the
      indoor rotation warp at 8x288x384), the image gradient on the indoor
      step's warps (warp_frame's geometry at 8x288x384, 3 and 1 channels),
-     and every kernel's registers and spills from the build log (phase 2);
+     every kernel's registers and spills from the build log (phase 2), and
+     the SSIM forwards' one-wave grids (blocks an SM, tiles);
   6. train: the flagship training step (args_files/hisfog/kitti/
      resnet_320x1024.txt: batch 8, 320x1024, ResNet-50, bf16 autocast, SSIM
      weight 0.85, automasking; seeded weights, a fixed synthetic batch,
@@ -821,6 +822,13 @@ def check_loss_kernels(dev):
                     f"ssim_bwd disagrees with its plain version at {shape}, per-source cotangent")
             continue
         px = b * hh * ww
+        rows, cols = ssim_kernel.FWD_TILE
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        per_sm = {name: ssim_kernel.blocks_per_sm(name, count, dev.index)
+                  for name, count in (("ssim_fwd", n), ("ssim_ident_min", m))}
+        print(f"[train-kernel] ssim forwards' grids: {b * -(-hh // rows) * -(-ww // cols)} tiles "
+              f"of {rows}x{cols} walked by one wave of {per_sm} blocks an SM x {sms} SMs",
+              flush=True)
         work = {  # (bytes, float32 operations)
             "ssim_fwd": (4 * px * (3 * n + 3 + n), SSIM_FWD_OPS * px * n * 3),
             "ssim_ident_min": (4 * px * (3 * m + 3 + n + 2) + 4 * hh * ww * m,

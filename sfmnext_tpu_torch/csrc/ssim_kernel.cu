@@ -28,19 +28,41 @@
 // way, ssim_kernel.py:589-593) and the backward rounds its result to
 // bfloat16, as autograd's cast back does; all arithmetic is float32.
 //
-// The forwards. One block of 256 threads owns a 16x32 tile of output
-// pixels of one (batch, source) and loops over the three channels. It
-// stages the tile's halo of P and T in shared memory, with reflected
-// indices at the image edge, and runs the box filter separably: 7-tap sums
-// along rows, then along columns, of p, t, p*p, t*t, p*t. The Pallas
-// kernels take a whole [H,W] plane per grid step and filter with band
-// matmuls because VMEM is large and the MXU otherwise idle; a GPU block
-// tiles instead. ssim_fwd reads 2 warped frames and the target (float32)
-// and writes the maps: 4*B*H*W*(3N + 3 + N) = 115 MB at the flagship step
-// (B=8, 320x1024, N=M=2), 34 us at 3.35 TB/s; its float32 work (~100
-// operations a pixel, source and channel) takes ~20 us at 67 TFLOP/s:
-// bytes bound it. ssim_ident_min does the same for M identity frames, plus
-// noise and the N maps in, the min and the argument out.
+// The forwards. The Pallas kernels take a whole [H,W] plane per grid step
+// and filter with band matmuls because VMEM is large and the MXU otherwise
+// idle; a GPU block tiles instead and runs the box filter separably: 7-tap
+// sums along rows, then along columns, of p, t, p*p, t*t, p*t. ssim_fwd
+// reads 2 warped frames and the target (float32) and writes the maps:
+// 4*B*H*W*(3N + 3 + N) = 115 MB at the flagship step (B=8, 320x1024,
+// N=M=2), 34 us at 3.35 TB/s; its float32 work (~100 operations a pixel,
+// source and channel) takes ~23 us at 67 TFLOP/s. ssim_ident_min does the
+// same for M identity frames, plus noise and the N maps in, the min and
+// the argument out. On this card the instructions and the shared-memory
+// traffic bind them, not the bytes: staging a channel at a time with each
+// value reflected and loaded alone, all seven taps of both box passes at
+// every output and the target's statistics for every source come to some
+// 200 instructions an output pixel, channel and source (6x the bound). The
+// design:
+//  - a one-wave grid of blocks walks 32x32 tiles; a block serves every
+//    source of its tile, so the target's halo is staged and its window
+//    means and variances taken once a tile, kept in registers;
+//  - a halo's rows arrive by cp.async as 16-byte vectors of their NHWC span
+//    (the image's rows reflected; its reflected columns filled in only in
+//    tiles at its left or right edge), into one of three turning buffers
+//    while the block filters the halo before; no split into channels, no
+//    value loaded alone where W % 4 == 0;
+//  - both passes run on the NHWC floats: pass 1 sums columns of float
+//    pairs, pass 2 takes a pixel's three channels from the same 16-byte
+//    loads; each thread slides its 7-tap sums over a run of values held in
+//    registers (one load and two adds an output and statistic, not seven);
+//  - a pixel's N maps leave from one thread at the tile's end (one 8- or
+//    16-byte vector where N is 2, 4 or 8); the identity min folds its M
+//    maps and their noise in registers, reads the pixel's N warped maps as
+//    one vector and writes the min and the argument as 16-byte vectors of
+//    4 pixels.
+// No one part bounds them now (PERF.md): both passes, the copies and the
+// stores each take their share, and the 128 registers a thread needs fill
+// the register file at 2 blocks (16 warps) an SM.
 //
 // The backward recomputes the window statistics from P and T, which it
 // reads anyway, rather than reading 5 residual planes written by the
@@ -84,9 +106,7 @@
 namespace {
 
 constexpr int kR = 3;              // the window's radius (7x7)
-constexpr int kTW = 32, kTH = 16;  // output tile
-constexpr int kThreads = 256;
-constexpr int kRows = kTH / (kThreads / kTW);  // output rows per thread: 2
+constexpr int kTW = 32, kTH = 16;  // output tile: columns; the backward's rows
 constexpr int kMaxSrc = 8;
 constexpr float kInvK2 = 1.f / 49.f;
 constexpr float kC1 = (float)(0.01 * 0.01);
@@ -107,173 +127,531 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-__device__ __forceinline__ float load(const float* p, bool bf16) {
-  const float x = __ldg(p);
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-// Stage channel c of P and T (one image each) over rows [ya, ya+rows) and
-// columns [xa, xa+cols) into shared memory, pitch `cols`.
-__device__ __forceinline__ void stage(const float* __restrict__ p, const float* __restrict__ t,
-                                      float* sp, float* st, int c, int ya, int xa, int rows,
-                                      int cols, int H, int W, bool bf16) {
-  for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
-    const int y = reflect(ya + i / cols, H), x = reflect(xa + i % cols, W);
-    const size_t off = ((size_t)y * W + x) * 3 + c;
-    sp[i] = load(p + off, bf16);
-    st[i] = load(t + off, bf16);
-  }
-}
-
-// 7-tap sums along rows of the five statistics: out[s][r][q] over taps
-// sp[r][q..q+6], for r < rows, q < out_cols.
-__device__ __forceinline__ void row_sums(const float* sp, const float* st, float* hs, int rows,
-                                         int in_cols, int out_cols) {
-  const int plane = rows * out_cols;
-  for (int i = threadIdx.x; i < plane; i += kThreads) {
-    const int r = i / out_cols, q = i % out_cols;
-    const float* a = sp + r * in_cols + q;
-    const float* b = st + r * in_cols + q;
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
-#pragma unroll
-    for (int k = 0; k < 2 * kR + 1; ++k) {
-      const float pv = a[k], tv = b[k];
-      s0 += pv;
-      s1 += tv;
-      s2 += pv * pv;
-      s3 += tv * tv;
-      s4 += pv * tv;
-    }
-    hs[i] = s0;
-    hs[plane + i] = s1;
-    hs[2 * plane + i] = s2;
-    hs[3 * plane + i] = s3;
-    hs[4 * plane + i] = s4;
-  }
-}
-
-// The pooled maps at one pixel from the row sums hs (plane pitch `cols`,
-// `plane` floats a statistic): 7-tap sums down rows r..r+6 of column q.
+// The window statistics at one pixel: the means, the variances and the
+// covariance of p and t.
 struct Pooled {
   float mu_p, mu_t, sp, st, spt;
 };
-
-__device__ __forceinline__ Pooled pooled(const float* hs, int plane, int cols, int r, int q) {
-  float s[5];
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    float a = 0.f;
-#pragma unroll
-    for (int k = 0; k < 2 * kR + 1; ++k) a += hs[j * plane + (r + k) * cols + q];
-    s[j] = a;
-  }
-  Pooled m;
-  m.mu_p = s[0] * kInvK2;
-  m.mu_t = s[1] * kInvK2;
-  m.sp = s[2] * kInvK2 - m.mu_p * m.mu_p;
-  m.st = s[3] * kInvK2 - m.mu_t * m.mu_t;
-  m.spt = s[4] * kInvK2 - m.mu_p * m.mu_t;
-  return m;
-}
 
 __device__ __forceinline__ void ssim_terms(const Pooled& m, float& num, float& den) {
   num = (2.f * m.mu_p * m.mu_t + kC1) * (2.f * m.spt + kC2);
   den = (m.mu_p * m.mu_p + m.mu_t * m.mu_t + kC1) * (m.sp + m.st + kC2);
 }
 
-// Forward halo: the tile plus the window's radius.
-constexpr int kFH = kTH + 2 * kR, kFW = kTW + 2 * kR;  // 22 x 38
+__device__ __forceinline__ float rounded(float v, int bf16) {
+  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// threadIdx.x, opaque to the compiler: the staging loops' and the passes'
+// indices are then computed where they are used, not hoisted out of the
+// tile, source and channel loops into registers that the passes need.
+__device__ __forceinline__ int opaque_tid() {
+  int t = threadIdx.x;
+  asm volatile("" : "+r"(t));
+  return t;
+}
+
+// Sums of v[o .. o + 6], o < R: the first directly, the others sliding.
+template <int R>
+__device__ __forceinline__ void window_sums(const float (&v)[R + 2 * kR], float (&out)[R]) {
+  float a = 0.f;
+#pragma unroll
+  for (int k = 0; k < 2 * kR + 1; ++k) a += v[k];
+  out[0] = a;
+#pragma unroll
+  for (int o = 1; o < R; ++o) {
+    a += v[o + 2 * kR] - v[o - 1];
+    out[o] = a;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forwards: a block takes 32x32-pixel tiles in turn (a one-wave grid walks
+// them all). Per tile it takes the target's window means and variances
+// once, then for each source runs two passes, each thread taking a run of
+// outputs so that neighbouring taps come from registers:
+//  1. the 7-tap column sums of s, s*s, s*t        [32 rows x 38 pixels x 3]
+//  2. the row sums, the SSIM and L1 terms and the channel mean: the
+//     source's map at 4 pixels of a row a thread  [32 x 32]
+// The halos stay as they arrive, NHWC rows of 40 pixels (slot s holds pixel
+// x0 - 4 + s, halo column s - 1), and so do the column sums. Three halo
+// buffers turn: the tile's target, the source being filtered, and the next
+// source (or the next tile's target) arriving by cp.async. A thread keeps
+// its pixels' target statistics, and the maps (ssim_fwd) or the running
+// min (ssim_ident_min), in registers until the tile's end.
+// ---------------------------------------------------------------------------
+constexpr int kFTH = 32, kFTW = 32;                       // forward tile
+constexpr int kFHH = kFTH + 2 * kR, kFHW = kFTW + 2 * kR;  // halo: 38 x 38
+constexpr int kSlots = kFHW + 2;                          // pixels a halo row holds: 40
+constexpr int kRawPitch = 3 * kSlots;                     // 120 floats
+constexpr int kRawVecs = kRawPitch / 4;                   // 30 16-byte vectors
+constexpr int kFwdThreads = 256;
+constexpr int kRun1 = 4, kRuns1 = kFTH / kRun1;  // pass 1: 4 rows a thread, 8 runs a column
+constexpr int kRun2 = 4, kRuns2 = kFTW / kRun2;   // pass 2: 4 columns a thread, 8 runs a row
+static_assert(kFTH * kRuns2 == kFwdThreads, "pass 2 takes one round");
+constexpr int kPairs = kRawPitch / 2;            // pass 1's float pairs a row: 60
+// cp.async: thread t copies vector t % 30 of rows t / 30 + 8k
+constexpr int kVecRowStep = kFwdThreads / kRawVecs;                  // 8
+constexpr int kVecRounds = (kFHH + kVecRowStep - 1) / kVecRowStep;   // 5
+// Widths off 16-byte rows (W % 4 != 0) read value by value: the cells a thread takes.
+constexpr int kScalarRounds = (kFHH * kSlots + kFwdThreads - 1) / kFwdThreads;  // 6
+
+typedef float Raw[kFHH][kRawPitch];
 
 struct FwdSmem {
-  float sp[kFH * kFW], st[kFH * kFW];
-  float hs[5 * kFH * kTW];
+  Raw raw[3];                     // halos as they arrive
+  float cs[3][kFTH][kRawPitch];  // pass 1's column sums [statistic], NHWC as the halos
+};
+constexpr size_t kFwdSmem = sizeof(FwdSmem);
+
+struct FwdArgs {
+  Srcs srcs;           // the sources: warped (ssim_fwd) or identity frames
+  const float* target;
+  float* maps;         // ssim_fwd: [B,H,W,N]
+  const float* noise;  // ssim_ident_min: [1,H,W,N] or null
+  const float* rmaps;  // ssim_ident_min: the warped maps [B,H,W,R]
+  float* out_min;
+  int* out_arg;
+  int B, N, R, H, W;
+  float weight;
+  int bf16;
 };
 
-// The loss map of one source on this block's tile: acc[j] for output row
-// ty + j * (kThreads / kTW), column tx. Every thread of the block calls it.
-__device__ void source_map(const float* __restrict__ p, const float* __restrict__ t,
-                           FwdSmem& sm, int y0, int x0, int H, int W, float weight, bool bf16,
-                           float acc[kRows]) {
-  const int tx = threadIdx.x % kTW, ty = threadIdx.x / kTW;
+struct FwdTile {
+  int b, y0, x0;
+};
+
+__device__ __forceinline__ int fwd_tiles(const FwdArgs& A) {
+  return A.B * ((A.H + kFTH - 1) / kFTH) * ((A.W + kFTW - 1) / kFTW);
+}
+
+__device__ __forceinline__ FwdTile fwd_tile(const FwdArgs& A, int tile) {
+  const int tiles_x = (A.W + kFTW - 1) / kFTW, tiles_yx = (A.H + kFTH - 1) / kFTH * tiles_x;
+  FwdTile T;
+  T.b = tile / tiles_yx;
+  const int rest = tile - T.b * tiles_yx, ty = rest / tiles_x;
+  T.y0 = ty * kFTH;
+  T.x0 = (rest - ty * tiles_x) * kFTW;
+  return T;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Where W % 4 == 0 a halo row's pixels inside the image, [pa, pb), arrive
+// as whole 16-byte vectors (x0 % kFTW == 0).
+__device__ __forceinline__ int copy_begin(const FwdTile& T) { return max(T.x0 - kR - 1, 0); }
+__device__ __forceinline__ int copy_end(const FwdArgs& A, const FwdTile& T) {
+  return min(T.x0 - kR - 1 + kSlots, A.W);
+}
+
+// Start copying image img's halo rows for tile T into buf (rows reflected
+// at the image's top and bottom).
+__device__ __forceinline__ void fetch_halo(const FwdArgs& A, const float* __restrict__ img,
+                                           const FwdTile& T, Raw& buf) {
+  const int t = opaque_tid();
+  if (A.W % 4 == 0 && t < kRawVecs * kVecRowStep) {
+    const int pa = copy_begin(T), v = t % kRawVecs, r0 = t / kRawVecs;
+    if (4 * v < 3 * (copy_end(A, T) - pa)) {
+      float* dst = &buf[0][3 * (pa - T.x0 + kR + 1) + 4 * v];
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) acc[j] = 0.f;
+      for (int k = 0; k < kVecRounds; ++k) {
+        const int r = r0 + k * kVecRowStep;
+        if (r < kFHH) {
+          const int y = reflect(T.y0 - kR + r, A.H);
+          cp_async16(dst + r * kRawPitch, img + (((size_t)T.b * A.H + y) * A.W + pa) * 3 + 4 * v);
+        }
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// Whether a halo needs prepare_halo once it has arrived.
+__device__ __forceinline__ bool needs_prepare(const FwdArgs& A, const FwdTile& T, int round) {
+  return round || A.W % 4 != 0 || T.x0 < kR + 1 || T.x0 - kR - 1 + kSlots > A.W;
+}
+
+// Complete the halo that arrived in buf: the reflected columns at the
+// image's left and right edge (no output reads the slots further out), and
+// with `round` every value rounded to bf16 (the target's; a source's are
+// rounded as the passes read them). Where W % 4 != 0 nothing arrived: every
+// value is read at its reflected row and column.
+__device__ __forceinline__ void prepare_halo(const FwdArgs& A, const float* __restrict__ img,
+                                             const FwdTile& T, Raw& buf, int round) {
+  const int t = opaque_tid();
+  if (A.W % 4 != 0) {
+    float x[kScalarRounds][3];  // all loads in flight before the stores
+#pragma unroll
+    for (int k = 0; k < kScalarRounds; ++k) {
+      const int i = t + k * kFwdThreads;
+      if (i < kFHH * kSlots) {
+        const int r = i / kSlots, s = i - r * kSlots;
+        const float* src = img + (((size_t)T.b * A.H + reflect(T.y0 - kR + r, A.H)) * A.W +
+                                  reflect(T.x0 - kR - 1 + s, A.W)) * 3;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) x[k][c] = __ldg(src + c);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kScalarRounds; ++k) {
+      const int i = t + k * kFwdThreads;
+      if (i < kFHH * kSlots)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) buf[0][i * 3 + c] = rounded(x[k][c], round);
+    }
+    return;
+  }
+  const int pa = copy_begin(T);
+  if (round) {  // the vectors that arrived, in place
+    const int nvec = 3 * (copy_end(A, T) - pa) / 4;
+    for (int i = t; i < kFHH * nvec; i += kFwdThreads) {
+      const int r = i / nvec;
+      float4* p = reinterpret_cast<float4*>(&buf[r][3 * (pa - T.x0 + kR + 1)]) + (i - r * nvec);
+      float4 v = *p;
+      v.x = rounded(v.x, 1), v.y = rounded(v.y, 1), v.z = rounded(v.z, 1), v.w = rounded(v.w, 1);
+      *p = v;
+    }
+  }
+  // pixels -3 .. -1 and W .. W + 2 from their reflections (rounding is
+  // idempotent, so a value read while another thread rounds it is the same)
+  for (int i = t; i < kFHH * 18; i += kFwdThreads) {
+    const int r = i / 18, k = (i - r * 18) / 3, c = i - r * 18 - 3 * k;
+    const int x = k < 3 ? k - 3 : A.W + k - 3, s = x - T.x0 + kR + 1;
+    if (s >= 1 && s <= kFHW)
+      buf[r][3 * s + c] = rounded(buf[r][3 * (reflect(x, A.W) - T.x0 + kR + 1) + c], round);
+  }
+}
+
+// Pass 1: cs[k][r][f] = the sum over d < 7 of statistic k at halo row
+// r + d, float f of the row (pixel slot f / 3, channel f % 3): t, t*t (the
+// target's, kSource false) or s, s*s, s*t. A thread takes a pair of floats
+// of 4 rows (the source's rounded as they are read).
+template <bool kSource>
+__device__ __forceinline__ void column_pass(FwdSmem& sm, const Raw& tb, const Raw& sb, int bf16) {
+  for (int i = opaque_tid(); i < kPairs * kRuns1; i += kFwdThreads) {  // 480: two rounds
+    const int j = i / kPairs, f = 2 * (i - j * kPairs), r0 = kRun1 * j;
+    float2 tv[kRun1 + 2 * kR], sv[kRun1 + 2 * kR];
+#pragma unroll
+    for (int k = 0; k < kRun1 + 2 * kR; ++k) {
+      tv[k] = *reinterpret_cast<const float2*>(&tb[r0 + k][f]);
+      if (kSource) {
+        const float2 x = *reinterpret_cast<const float2*>(&sb[r0 + k][f]);
+        sv[k] = make_float2(rounded(x.x, bf16), rounded(x.y, bf16));
+      }
+    }
+#pragma unroll
+    for (int st = 0; st < (kSource ? 3 : 2); ++st) {
+      float w[2][kRun1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[kRun1 + 2 * kR];
+#pragma unroll
+        for (int k = 0; k < kRun1 + 2 * kR; ++k) {
+          const float t = h ? tv[k].y : tv[k].x, p = h ? sv[k].y : sv[k].x;
+          v[k] = kSource ? (st == 0 ? p : st == 1 ? p * p : p * t) : (st == 0 ? t : t * t);
+        }
+        window_sums<kRun1>(v, w[h]);
+      }
+#pragma unroll
+      for (int o = 0; o < kRun1; ++o)
+        *reinterpret_cast<float2*>(&sm.cs[st][r0 + o][f]) = make_float2(w[0][o], w[1][o]);
+    }
+  }
+}
+
+// The 7-column sums at the thread's pixels (columns q0 .. q0 + 3) of a
+// column-sum row, each channel: w[c][o], from nine 16-byte loads.
+__device__ __forceinline__ void row_sums(const float* row, int q0, float (&w)[3][kRun2]) {
+  const float4* p = reinterpret_cast<const float4*>(row + 3 * q0);
+  float f[36];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const float4 x = p[k];
+    f[4 * k] = x.x, f[4 * k + 1] = x.y, f[4 * k + 2] = x.z, f[4 * k + 3] = x.w;
+  }
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
-    stage(p, t, sm.sp, sm.st, c, y0 - kR, x0 - kR, kFH, kFW, H, W, bf16);
-    __syncthreads();
-    row_sums(sm.sp, sm.st, sm.hs, kFH, kFW, kTW);
-    __syncthreads();
+    float v[kRun2 + 2 * kR];  // output q's taps: slots q + 1 .. q + 7
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int r = ty + j * (kThreads / kTW);
-      float num, den;
-      ssim_terms(pooled(sm.hs, kFH * kTW, kTW, r, tx), num, den);
-      const float dist = fminf(fmaxf((1.f - num / den) * 0.5f, 0.f), 1.f);
-      const int ci = (r + kR) * kFW + tx + kR;
-      const float l1 = fabsf(sm.st[ci] - sm.sp[ci]);
-      acc[j] += (weight * dist + (1.f - weight) * l1) * (1.f / 3.f);
-    }
-    __syncthreads();
+    for (int k = 0; k < kRun2 + 2 * kR; ++k) v[k] = f[3 + c + 3 * k];
+    window_sums<kRun2>(v, w[c]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ssim_fwd_kernel(Srcs preds, const float* __restrict__ target, float* __restrict__ maps, int N,
-                    int H, int W, float weight, int bf16) {
-  __shared__ FwdSmem sm;
-  const int b = blockIdx.z / N, n = blockIdx.z % N;
-  const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kTW;
-  const size_t img = (size_t)b * H * W * 3;
-  float acc[kRows];
-  source_map(preds.p[n] + img, target + img, sm, y0, x0, H, W, weight, bf16 != 0, acc);
-  const int x = x0 + threadIdx.x % kTW;
+// A halo's values at the thread's pixels (row r, columns q0 .. q0 + 3),
+// x[3 o + c]: three 16-byte loads.
+__device__ __forceinline__ void centres(const Raw& buf, int r, int q0, float (&x)[3 * kRun2]) {
+  const float4* p = reinterpret_cast<const float4*>(&buf[r + kR][3 * (q0 + kR + 1)]);
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    const int y = y0 + threadIdx.x / kTW + j * (kThreads / kTW);
-    if (y < H && x < W) maps[(((size_t)b * H + y) * W + x) * N + n] = acc[j];
+  for (int k = 0; k < 3; ++k) {
+    const float4 v = p[k];
+    x[4 * k] = v.x, x[4 * k + 1] = v.y, x[4 * k + 2] = v.z, x[4 * k + 3] = v.w;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ssim_ident_min_kernel(Srcs idents, const float* __restrict__ target,
-                          const float* __restrict__ noise, const float* __restrict__ rmaps,
-                          float* __restrict__ out_min, int* __restrict__ out_arg, int M, int N,
-                          int H, int W, float weight, int bf16) {
-  __shared__ FwdSmem sm;
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kTW;
-  const int x = x0 + threadIdx.x % kTW;
-  const size_t img = (size_t)b * H * W * 3;
-  float best[kRows];
-  int arg[kRows];
-  for (int m = 0; m < M; ++m) {
-    float acc[kRows];
-    source_map(idents.p[m] + img, target + img, sm, y0, x0, H, W, weight, bf16 != 0, acc);
+// The target's window means and variances at a thread's pixels, by channel.
+struct TargetStats {
+  float mu[3][kRun2], var[3][kRun2];
+};
+
+__device__ __forceinline__ void target_stats(const FwdSmem& sm, int r, int q0, TargetStats& ts) {
+  float s1[3][kRun2], s3[3][kRun2];
+  row_sums(sm.cs[0][r], q0, s1);
+  row_sums(sm.cs[1][r], q0, s3);
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int y = y0 + threadIdx.x / kTW + j * (kThreads / kTW);
-      const bool in = noise != nullptr && y < H && x < W;
-      const float cur = acc[j] + (in ? noise[((size_t)y * W + x) * M + m] : 0.f);
-      if (m == 0 || cur < best[j]) {  // first minimum wins
-        best[j] = cur;
-        arg[j] = N + m;
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int o = 0; o < kRun2; ++o) {
+      ts.mu[c][o] = s1[c][o] * kInvK2;
+      ts.var[c][o] = s3[c][o] * kInvK2 - ts.mu[c][o] * ts.mu[c][o];
+    }
+}
+
+// Pass 2: the source's map at the thread's pixels.
+__device__ __forceinline__ void source_map(const FwdSmem& sm, const TargetStats& ts, const Raw& tb,
+                                           const Raw& sb, int r, int q0, float weight, int bf16,
+                                           float (&acc)[kRun2]) {
+  float dist[3][kRun2];
+  {
+    float s0[3][kRun2], s2[3][kRun2], s4[3][kRun2];
+    row_sums(sm.cs[0][r], q0, s0);
+    row_sums(sm.cs[1][r], q0, s2);
+    row_sums(sm.cs[2][r], q0, s4);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int o = 0; o < kRun2; ++o) {
+        Pooled m;
+        m.mu_p = s0[c][o] * kInvK2;
+        m.mu_t = ts.mu[c][o];
+        m.sp = s2[c][o] * kInvK2 - m.mu_p * m.mu_p;
+        m.st = ts.var[c][o];
+        m.spt = s4[c][o] * kInvK2 - m.mu_p * m.mu_t;
+        float num, den;
+        ssim_terms(m, num, den);
+        // the hardware's division, within 2 ulp (den >= C1 * C2)
+        dist[c][o] = fminf(fmaxf((1.f - __fdividef(num, den)) * 0.5f, 0.f), 1.f);
+      }
+  }
+  float tc[3 * kRun2], pc[3 * kRun2];
+  centres(tb, r, q0, tc);
+  centres(sb, r, q0, pc);
+#pragma unroll
+  for (int o = 0; o < kRun2; ++o) acc[o] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int o = 0; o < kRun2; ++o) {
+      const float l1 = fabsf(tc[3 * o + c] - rounded(pc[3 * o + c], bf16));
+      acc[o] += (weight * dist[c][o] + (1.f - weight) * l1) * (1.f / 3.f);
+    }
+}
+
+// The walk over the tiles. The halos come in the order target, sources
+// 0 .. N-1, the next tile's target, each copied into the free buffer while
+// the block filters the one before. Out takes each source's map (source)
+// and closes the tile (tile).
+template <class Out>
+__device__ __forceinline__ void walk_tiles(const FwdArgs& A, FwdSmem& sm, Out& out) {
+  const int n_tiles = fwd_tiles(A);
+  int tile = blockIdx.x;
+  if (tile >= n_tiles) return;
+  const int r = threadIdx.x / kRuns2, q0 = kRun2 * (threadIdx.x % kRuns2);
+  FwdTile T = fwd_tile(A, tile);
+  int tb = 0;  // the target's buffer
+  fetch_halo(A, A.target, T, sm.raw[tb]);
+  cp_async_wait_all();
+  __syncthreads();
+  if (needs_prepare(A, T, A.bf16)) {
+    prepare_halo(A, A.target, T, sm.raw[tb], A.bf16);
+    __syncthreads();
+  }
+  for (;;) {
+    // here the target's halo is complete, and the last tile's passes are done
+    const int next = tile + gridDim.x;
+    const FwdTile U = next < n_tiles ? fwd_tile(A, next) : T;
+    int sb = tb == 2 ? 0 : tb + 1;  // the source's buffer
+    fetch_halo(A, A.srcs.p[0], T, sm.raw[sb]);
+    column_pass<false>(sm, sm.raw[tb], sm.raw[tb], 0);
+    __syncthreads();
+    TargetStats ts;
+    target_stats(sm, r, q0, ts);
+    cp_async_wait_all();
+    __syncthreads();  // source 0 has arrived; the target's column sums are read
+    if (needs_prepare(A, T, 0)) {
+      prepare_halo(A, A.srcs.p[0], T, sm.raw[sb], 0);
+      __syncthreads();
+    }
+    for (int n = 0; n < A.N; ++n) {
+      const int nb = 3 - tb - sb;  // the free buffer
+      const bool last = n + 1 == A.N;
+      if (!last) fetch_halo(A, A.srcs.p[n + 1], T, sm.raw[nb]);
+      else if (next < n_tiles) fetch_halo(A, A.target, U, sm.raw[nb]);
+      column_pass<true>(sm, sm.raw[tb], sm.raw[sb], A.bf16);
+      __syncthreads();
+      float acc[kRun2];
+      source_map(sm, ts, sm.raw[tb], sm.raw[sb], r, q0, A.weight, A.bf16, acc);
+      out.source(A, T, n, r, q0, acc);
+      cp_async_wait_all();
+      __syncthreads();  // the passes are done; the next halo has arrived
+      if (!last && needs_prepare(A, T, 0)) {
+        prepare_halo(A, A.srcs.p[n + 1], T, sm.raw[nb], 0);
+        __syncthreads();
+      } else if (last && next < n_tiles && needs_prepare(A, U, A.bf16)) {
+        prepare_halo(A, A.target, U, sm.raw[nb], A.bf16);
+        __syncthreads();
+      }
+      sb = nb;
+    }
+    out.tile(A, T, r, q0);
+    if (next >= n_tiles) break;
+    tile = next;
+    T = U;
+    tb = sb;
+  }
+}
+
+// ssim_fwd's pixels: the N <= kN maps of a pixel leave together.
+template <int kN>
+struct MapsOut {
+  float m[kN][kRun2];
+
+  __device__ __forceinline__ void source(const FwdArgs&, const FwdTile&, int n, int, int,
+                                         const float (&acc)[kRun2]) {
+#pragma unroll
+    for (int k = 0; k < kN; ++k)
+      if (k == n)
+#pragma unroll
+        for (int o = 0; o < kRun2; ++o) m[k][o] = acc[o];
+  }
+
+  __device__ __forceinline__ void tile(const FwdArgs& A, const FwdTile& T, int r, int q0) {
+    const int y = T.y0 + r;
+    if (y >= A.H) return;
+#pragma unroll
+    for (int o = 0; o < kRun2; ++o) {
+      const int x = T.x0 + q0 + o;
+      if (x >= A.W) break;
+      float* dst = A.maps + (((size_t)T.b * A.H + y) * A.W + x) * A.N;
+      if constexpr (kN % 4 == 0) {
+        if (A.N == kN) {
+#pragma unroll
+          for (int k = 0; k < kN; k += 4)
+            reinterpret_cast<float4*>(dst)[k / 4] =
+                make_float4(m[k][o], m[k + 1][o], m[k + 2][o], m[k + 3][o]);
+          continue;
+        }
+      }
+      if constexpr (kN == 2) {
+        if (A.N == 2) {
+          *reinterpret_cast<float2*>(dst) = make_float2(m[0][o], m[1][o]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kN; ++k)
+        if (k < A.N) dst[k] = m[k][o];
+    }
+  }
+};
+
+// ssim_ident_min's pixels: the identity maps plus noise folded as they
+// come (the first minimum wins), then the R warped maps by strict <.
+struct MinOut {
+  float best[kRun2];
+  unsigned args;  // the argument of pixel o in byte o (R + M <= 16)
+
+  __device__ __forceinline__ void set_arg(int o, int a) {
+    args = (args & ~(0xffu << (8 * o))) | ((unsigned)a << (8 * o));
+  }
+  __device__ __forceinline__ int arg(int o) const { return (args >> (8 * o)) & 0xff; }
+
+  __device__ __forceinline__ void source(const FwdArgs& A, const FwdTile& T, int m, int r, int q0,
+                                         const float (&acc)[kRun2]) {
+    const int y = T.y0 + r;
+#pragma unroll
+    for (int o = 0; o < kRun2; ++o) {
+      const int x = T.x0 + q0 + o;
+      const bool in = A.noise != nullptr && y < A.H && x < A.W;
+      const float cur = acc[o] + (in ? __ldg(A.noise + ((size_t)y * A.W + x) * A.N + m) : 0.f);
+      if (m == 0 || cur < best[o]) {
+        best[o] = cur;
+        set_arg(o, A.R + m);
       }
     }
   }
+
+  __device__ __forceinline__ void tile(const FwdArgs& A, const FwdTile& T, int r, int q0) {
+    const int y = T.y0 + r;
+    if (y >= A.H) return;
+    const size_t pix0 = ((size_t)T.b * A.H + y) * A.W + T.x0 + q0;
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    const int y = y0 + threadIdx.x / kTW + j * (kThreads / kTW);
-    if (y >= H || x >= W) continue;
-    const size_t pix = ((size_t)b * H + y) * W + x;
-    for (int k = 0; k < N; ++k) {
-      const float r = rmaps[pix * N + k];
-      if (r < best[j]) {  // strict: a tie stays with the identity or the earlier source
-        best[j] = r;
-        arg[j] = k;
+    for (int o = 0; o < kRun2; ++o) {
+      if (T.x0 + q0 + o >= A.W) break;
+      const float* src = A.rmaps + (pix0 + o) * A.R;
+      float v[kMaxSrc];
+      if (A.R % 4 == 0) {
+#pragma unroll
+        for (int k = 0; k < kMaxSrc; k += 4)
+          if (k < A.R) {
+            const float4 x = __ldg(reinterpret_cast<const float4*>(src) + k / 4);
+            v[k] = x.x, v[k + 1] = x.y, v[k + 2] = x.z, v[k + 3] = x.w;
+          }
+      } else if (A.R == 2) {
+        const float2 x = __ldg(reinterpret_cast<const float2*>(src));
+        v[0] = x.x, v[1] = x.y;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kMaxSrc; ++k)
+          if (k < A.R) v[k] = __ldg(src + k);
       }
+#pragma unroll
+      for (int k = 0; k < kMaxSrc; ++k)
+        if (k < A.R && v[k] < best[o]) {  // strict: a tie stays with the identity or the earlier source
+          best[o] = v[k];
+          set_arg(o, k);
+        }
     }
-    out_min[pix] = best[j];
-    out_arg[pix] = arg[j];
+    if (A.W % 4 == 0 && T.x0 + q0 + kRun2 <= A.W) {  // 16-byte rows
+      *reinterpret_cast<float4*>(A.out_min + pix0) = make_float4(best[0], best[1], best[2], best[3]);
+      *reinterpret_cast<int4*>(A.out_arg + pix0) = make_int4(arg(0), arg(1), arg(2), arg(3));
+    } else {
+#pragma unroll
+      for (int o = 0; o < kRun2; ++o)
+        if (T.x0 + q0 + o < A.W) {
+          A.out_min[pix0 + o] = best[o];
+          A.out_arg[pix0 + o] = arg(o);
+        }
+    }
   }
+};
+
+// (2 blocks an SM: 100,800 bytes of shared memory and at most 128
+// registers each; the 8-source instance, whose maps take 32 registers, 1)
+template <int kN>
+__global__ void __launch_bounds__(kFwdThreads, kN > 4 ? 1 : 2) ssim_fwd_kernel(FwdArgs A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  MapsOut<kN> out;
+  walk_tiles(A, *reinterpret_cast<FwdSmem*>(smem_raw), out);
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 2) ssim_ident_min_kernel(FwdArgs A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  MinOut out;
+  walk_tiles(A, *reinterpret_cast<FwdSmem*>(smem_raw), out);
 }
 
 // How often output y's window reads input x under reflection, for
@@ -324,19 +702,6 @@ struct BwdArgs {
   float w_ssim, w_l1;  // the SSIM and L1 weights over the channel mean: weight / 3, (1 - weight) / 3
   int bf16;
 };
-
-__device__ __forceinline__ float rounded(float v, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-// threadIdx.x, opaque to the compiler: the staging loops' and the passes'
-// indices are then computed where they are used, not hoisted out of the
-// tile, source and channel loops into registers that the passes need.
-__device__ __forceinline__ int opaque_tid() {
-  int t = threadIdx.x;
-  asm volatile("" : "+r"(t));
-  return t;
-}
 
 // The halo of the tile at (y0, x0) of image img (float32 NHWC, 3 channels)
 // into dst [3][kBH][kBW], rounded to bf16 in the bf16 loss. Inside the
@@ -405,20 +770,6 @@ __device__ __forceinline__ void stage_cotangent(const BwdArgs& A, BwdSmem& sm, i
     }
     sm.g[r][q] = g;
     sm.won[r][q] = won;
-  }
-}
-
-// Sums of v[o .. o + 6], o < R: the first directly, the others sliding.
-template <int R>
-__device__ __forceinline__ void window_sums(const float (&v)[R + 2 * kR], float (&out)[R]) {
-  float a = 0.f;
-#pragma unroll
-  for (int k = 0; k < 2 * kR + 1; ++k) a += v[k];
-  out[0] = a;
-#pragma unroll
-  for (int o = 1; o < R; ++o) {
-    a += v[o + 2 * kR] - v[o - 1];
-    out[o] = a;
   }
 }
 
@@ -626,8 +977,7 @@ __global__ void __launch_bounds__(kBwdThreads, 3) ssim_bwd_kernel(BwdArgs A) {
 }
 
 bool shapes_ok(int B, int N, int H, int W) {
-  return B > 0 && N > 0 && N <= kMaxSrc && H >= 4 && W >= 4 && (long long)B * N <= 65535 &&
-         (H + kTH - 1) / kTH <= 65535;
+  return B > 0 && N > 0 && N <= kMaxSrc && H >= 4 && W >= 4;
 }
 
 bool fill(Srcs& dst, void* const* src, int n) {
@@ -646,7 +996,65 @@ bool fill(Outs& dst, void* const* src, int n) {
   return true;
 }
 
-dim3 grid(int H, int W, int z) { return dim3((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, z); }
+// A kernel's occupancy on each card, queried once a card.
+struct Occupancy {
+  int per_sm[16], sms[16];
+};
+
+// The blocks of `kernel` (threads and dynamic shared memory as launched)
+// that one SM of the current card holds at once, and the card's SMs.
+cudaError_t occupancy(const void* kernel, int threads, size_t smem, Occupancy& occ, int& per_sm,
+                      int& sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 16) return cudaErrorInvalidDevice;
+  if (occ.per_sm[dev] == 0) {
+    int p = 0, s = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p, kernel, threads, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    occ.sms[dev] = s;
+    occ.per_sm[dev] = max(1, p);
+  }
+  per_sm = occ.per_sm[dev];
+  sms = occ.sms[dev];
+  return cudaSuccess;
+}
+
+// One block a tile, or one wave of blocks walking the tiles where they are
+// more: the grid of a kernel that loops over tiles of th x tw pixels.
+cudaError_t one_wave_grid(const void* kernel, int threads, size_t smem, Occupancy& occ, int B,
+                          int H, int W, int th, int tw, int& blocks) {
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = occupancy(kernel, threads, smem, occ, per_sm, sms);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)B * ((H + th - 1) / th) * ((W + tw - 1) / tw);
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  blocks = (int)min(tiles, (long long)per_sm * sms);
+  return cudaSuccess;
+}
+
+Occupancy occ_fwd[4], occ_min, occ_bwd;  // ssim_fwd_kernel<1, 2, 4, 8>, ...
+
+// ssim_fwd_kernel's instance for N sources and its occupancy record.
+void fwd_instance(int N, void (*&kernel)(FwdArgs), Occupancy*& occ) {
+  if (N == 1) kernel = ssim_fwd_kernel<1>, occ = &occ_fwd[0];
+  else if (N == 2) kernel = ssim_fwd_kernel<2>, occ = &occ_fwd[1];
+  else if (N <= 4) kernel = ssim_fwd_kernel<4>, occ = &occ_fwd[2];
+  else kernel = ssim_fwd_kernel<8>, occ = &occ_fwd[3];
+}
+
+cudaError_t launch_fwd(void (*kernel)(FwdArgs), Occupancy& occ, const FwdArgs& a,
+                       cudaStream_t stream) {
+  int blocks = 0;
+  const cudaError_t err = one_wave_grid(reinterpret_cast<const void*>(kernel), kFwdThreads,
+                                        kFwdSmem, occ, a.B, a.H, a.W, kFTH, kFTW, blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kFwdThreads, kFwdSmem, stream>>>(a);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -654,24 +1062,41 @@ extern "C" {
 
 int ssim_fwd(void* const* preds, const void* target, void* maps, int B, int N, int H, int W,
              int bf16, float weight, void* stream) {
-  Srcs s{};
-  if (!shapes_ok(B, N, H, W) || !fill(s, preds, N)) return (int)cudaErrorInvalidValue;
-  ssim_fwd_kernel<<<grid(H, W, B * N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const float*>(target), static_cast<float*>(maps), N, H, W, weight, bf16);
-  return (int)cudaGetLastError();
+  FwdArgs a{};
+  if (!shapes_ok(B, N, H, W) || !fill(a.srcs, preds, N)) return (int)cudaErrorInvalidValue;
+  a.target = static_cast<const float*>(target);
+  a.maps = static_cast<float*>(maps);
+  a.B = B;
+  a.N = N;
+  a.H = H;
+  a.W = W;
+  a.weight = weight;
+  a.bf16 = bf16;
+  void (*kernel)(FwdArgs) = nullptr;
+  Occupancy* occ = nullptr;
+  fwd_instance(N, kernel, occ);
+  return (int)launch_fwd(kernel, *occ, a, static_cast<cudaStream_t>(stream));
 }
 
 int ssim_ident_min(void* const* idents, const void* target, const void* noise, const void* rmaps,
                    void* out_min, void* out_arg, int B, int M, int N, int H, int W, int bf16,
                    float weight, void* stream) {
-  Srcs s{};
-  if (!shapes_ok(B, M, H, W) || N < 1 || N > kMaxSrc || !fill(s, idents, M))
+  FwdArgs a{};
+  if (!shapes_ok(B, M, H, W) || N < 1 || N > kMaxSrc || !fill(a.srcs, idents, M))
     return (int)cudaErrorInvalidValue;
-  ssim_ident_min_kernel<<<grid(H, W, B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const float*>(target), static_cast<const float*>(noise),
-      static_cast<const float*>(rmaps), static_cast<float*>(out_min), static_cast<int*>(out_arg),
-      M, N, H, W, weight, bf16);
-  return (int)cudaGetLastError();
+  a.target = static_cast<const float*>(target);
+  a.noise = static_cast<const float*>(noise);
+  a.rmaps = static_cast<const float*>(rmaps);
+  a.out_min = static_cast<float*>(out_min);
+  a.out_arg = static_cast<int*>(out_arg);
+  a.B = B;
+  a.N = M;
+  a.R = N;
+  a.H = H;
+  a.W = W;
+  a.weight = weight;
+  a.bf16 = bf16;
+  return (int)launch_fwd(ssim_ident_min_kernel, occ_min, a, static_cast<cudaStream_t>(stream));
 }
 
 int ssim_bwd(void* const* preds, void* const* dps, const void* target, const void* g,
@@ -679,23 +1104,10 @@ int ssim_bwd(void* const* preds, void* const* dps, const void* target, const voi
   BwdArgs a{};
   if (!shapes_ok(B, N, H, W) || !fill(a.preds, preds, N) || !fill(a.dps, dps, N))
     return (int)cudaErrorInvalidValue;
-  // one wave: the blocks the current card holds at once (queried once a card)
-  static int wave[16];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int blocks = 0;
+  const cudaError_t err = one_wave_grid(reinterpret_cast<const void*>(ssim_bwd_kernel),
+                                        kBwdThreads, kBwdSmem, occ_bwd, B, H, W, kTH, kTW, blocks);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 16) return (int)cudaErrorInvalidDevice;
-  if (wave[dev] == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaFuncSetAttribute(ssim_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kBwdSmem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ssim_bwd_kernel, kBwdThreads,
-                                                          kBwdSmem);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    wave[dev] = max(1, per_sm * sms);
-  }
   a.target = static_cast<const float*>(target);
   a.g = static_cast<const float*>(g);
   a.arg = static_cast<const int*>(arg);
@@ -706,11 +1118,37 @@ int ssim_bwd(void* const* preds, void* const* dps, const void* target, const voi
   a.w_ssim = weight / 3.f;
   a.w_l1 = (1.f - weight) / 3.f;
   a.bf16 = bf16;
-  const long long tiles = (long long)B * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int blocks = tiles < wave[dev] ? (int)tiles : wave[dev];
   ssim_bwd_kernel<<<blocks, kBwdThreads, kBwdSmem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Blocks of an SSIM kernel that one SM of the current card holds at once
+// (kernel 0: ssim_fwd's instance for n sources, 1: ssim_ident_min, 2:
+// ssim_bwd); negative: a CUDA error, negated. A launch's grid is this many
+// blocks an SM, or one block a tile where the tiles are fewer.
+int ssim_blocks_per_sm(int kernel, int n) {
+  const void* fn = nullptr;
+  Occupancy* occ = nullptr;
+  int threads = kFwdThreads;
+  size_t smem = kFwdSmem;
+  if (kernel == 0 && n >= 1 && n <= kMaxSrc) {
+    void (*fwd)(FwdArgs) = nullptr;
+    fwd_instance(n, fwd, occ);
+    fn = reinterpret_cast<const void*>(fwd);
+  } else if (kernel == 1) {
+    fn = reinterpret_cast<const void*>(ssim_ident_min_kernel);
+    occ = &occ_min;
+  } else if (kernel == 2) {
+    fn = reinterpret_cast<const void*>(ssim_bwd_kernel);
+    occ = &occ_bwd;
+    threads = kBwdThreads;
+    smem = kBwdSmem;
+  } else {
+    return -(int)cudaErrorInvalidValue;
+  }
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = occupancy(fn, threads, smem, *occ, per_sm, sms);
+  return err == cudaSuccess ? per_sm : -(int)err;
 }
 
 }  // extern "C"

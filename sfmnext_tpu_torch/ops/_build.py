@@ -123,6 +123,8 @@ def library() -> ctypes.CDLL:
     lib.sql_bwd_blocks_per_sm.restype = i32
     lib.sql_summary_blocks_per_sm.argtypes = [i32, i32]
     lib.sql_summary_blocks_per_sm.restype = i32
+    lib.ssim_blocks_per_sm.argtypes = [i32, i32]
+    lib.ssim_blocks_per_sm.restype = i32
     lib.sql_kernel_error_string.argtypes = [i32]
     lib.sql_kernel_error_string.restype = ctypes.c_char_p
     return lib

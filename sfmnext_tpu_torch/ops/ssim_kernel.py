@@ -23,6 +23,10 @@ warp writes them; ``loss_dtype`` bfloat16 rounds them to bf16 as the
 kernels load them. Only the warped sources get a gradient: the target, the
 identity sources and the noise are data.
 
+Each kernel runs a one-wave grid: the blocks the card holds at once
+(``blocks_per_sm`` times its SMs), each walking image tiles (``FWD_TILE``
+pixels in the forwards), or one block a tile where the tiles are fewer.
+
 The plain versions (``plain_maps``, ``plain_ident_min``, ``plain_bwd``)
 round the inputs to the loss dtype and then run ``ops/losses`` in float32,
 so in float32 they are the XLA path of the JAX package; the Pallas kernels
@@ -32,11 +36,15 @@ tensor takes them; a CUDA tensor launches the kernels or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from sfmnext_tpu_torch.ops import _build, losses as L
 
 MAX_SOURCES = 8  # kMaxSrc in csrc/ssim_kernel.cu
+FWD_TILE = (32, 32)  # (rows, columns) of a forward block's tile: kFTH, kFTW
+_KERNEL_IDS = {"ssim_fwd": 0, "ssim_ident_min": 1, "ssim_bwd": 2}
 
 
 def _rounded(x: torch.Tensor, loss_dtype) -> torch.Tensor:
@@ -80,6 +88,19 @@ def plain_bwd(preds, target, g, arg=None, ssim_weight: float = 0.85, loss_dtype=
         won = arg[..., None] == torch.arange(len(ps), device=arg.device, dtype=arg.dtype)
         g = g[..., None] * won.to(g.dtype)
     return torch.autograd.grad(maps, ps, g)
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(kernel: str, n: int, device_index: int) -> int:
+    """Blocks of an SSIM kernel (``"ssim_fwd"`` for n sources,
+    ``"ssim_ident_min"`` or ``"ssim_bwd"``) that one SM of the card holds at
+    once, as the card reports it for the compiled kernel."""
+    lib = _build.library()
+    with torch.cuda.device(device_index):
+        blocks = lib.ssim_blocks_per_sm(_KERNEL_IDS[kernel], n)
+    if blocks <= 0:
+        _build.check_error(lib, -blocks or 1, f"blocks_per_sm({kernel!r})")
+    return blocks
 
 
 def _check(srcs, target, loss_dtype):

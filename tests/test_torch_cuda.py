@@ -37,6 +37,11 @@ the maps agree to 1e-4 (float32 and bf16 inputs alike: both sides round
 the inputs the same way). The min agrees to 1e-4 and its argument
 wherever the winner leads by more than 2e-4; an identity equal to a warped
 source takes every tie, so that source never wins and gets no gradient.
+The forwards are also held where a pixel's maps leave as one 16-byte
+vector (N = 4) or value by value (N = 3), on tiles whose halo rows are
+read as vectors (W % 4 == 0) down to H = 4, with and without noise; they
+have no atomics, so two calls give the same bits, and at the flagship
+shape their one-wave grids walk several tiles a block.
 The backward divides by the squared SSIM denominator, which amplifies the
 summation-order differences: its gradients agree to 1e-3 of their largest
 value in float32, and to 1e-2 with bf16 rounding (one bf16 step), also
@@ -448,12 +453,14 @@ def test_fused_ops_carry_gradients_on_the_card(dev):
         assert t.grad is not None and bool(torch.isfinite(t.grad.float()).all())
 
 
-# (B, H, W, warped sources, identity sources); the last five put widths off
+# (B, H, W, warped sources, identity sources); the next five put widths off
 # the backward's 32-column tiles and 16-byte vectors (W = 1025, 9, 70, 134),
-# H below the 6-row halo, one and eight sources
+# H below the 6-row halo, one and eight sources; the last two widths of
+# 16-byte rows (the forwards copy their halos' rows as vectors), down to
+# H = 4, where a pixel's 4 maps leave as one vector and 3 value by value
 SSIM_SHAPES = [(8, 320, 1024, 2, 2), (2, 37, 53, 3, 3), (2, 4, 9, 3, 2), (1, 21, 70, 1, 1),
                (1, 6, 1025, 1, 1), (2, 4, 9, 8, 1), (1, 37, 1025, 8, 2), (3, 4, 70, 1, 1),
-               (2, 21, 134, 2, 1)]
+               (2, 21, 134, 2, 1), (2, 70, 160, 4, 1), (1, 4, 136, 3, 2)]
 SSIM_MAP_TOL = 1e-4
 LOSS_DTYPES = [torch.float32, torch.bfloat16]
 
@@ -542,6 +549,52 @@ def test_identity_takes_ties_on_the_card(dev, shape):
     assert not bool((arg == 0).any())
     assert not bool(ps[0].grad.any())
     assert not bool(automask[arg == shape[3]].any())
+
+
+@pytest.mark.parametrize("shape", [SSIM_SHAPES[0], SSIM_SHAPES[1]], ids=str)
+def test_ssim_forwards_are_deterministic(dev, shape):
+    """Two calls of each forward on the same inputs agree bit for bit."""
+    preds, idents, target, noise = _ssim_inputs(dev, *shape, seed=7)
+    runs = []
+    for _ in range(2):
+        maps = ssim_kernel.ssim_fwd(preds, target)
+        runs.append((maps, *ssim_kernel.ssim_ident_min(idents, target, noise, maps)))
+    torch.cuda.synchronize()
+    for a, x in zip(*runs):
+        assert torch.equal(a, x)
+
+
+def test_ssim_forwards_walk_tiles_in_one_wave(dev):
+    """At the flagship shape the tiles outnumber a wave of blocks several
+    times over, so each block of the forwards' grid takes many tiles."""
+    b, h, w, n, m = SSIM_SHAPES[0]
+    rows, cols = ssim_kernel.FWD_TILE
+    tiles = b * -(-h // rows) * -(-w // cols)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    index = torch.cuda.current_device()
+    for kernel, count in (("ssim_fwd", n), ("ssim_ident_min", m)):
+        wave = ssim_kernel.blocks_per_sm(kernel, count, index) * sms
+        assert tiles > 4 * wave, (kernel, tiles, wave)
+
+
+@pytest.mark.parametrize("with_noise", [True, False], ids=["noise", "no-noise"])
+@pytest.mark.parametrize("shape", [SSIM_SHAPES[0], SSIM_SHAPES[1], (2, 70, 160, 2, 2)], ids=str)
+def test_ssim_ident_min_matches_plain(dev, shape, with_noise):
+    """The min to 1e-4 and its argument on the pixels whose winner leads by
+    more than 2e-4, with the tie-break noise and without it."""
+    preds, idents, target, noise = _ssim_inputs(dev, *shape, seed=11)
+    noise = noise if with_noise else None
+    maps = ssim_kernel.ssim_fwd(preds, target)
+    out_min, arg = ssim_kernel.ssim_ident_min(idents, target, noise, maps)
+    torch.cuda.synchronize()
+    want_min, want_arg = ssim_kernel.plain_ident_min(idents, target, noise, maps)
+    torch.testing.assert_close(out_min, want_min, rtol=0, atol=SSIM_MAP_TOL)
+    ident = ssim_kernel.plain_maps(idents, target)
+    cands = torch.cat([ident if noise is None else ident + noise, maps], dim=-1)
+    top2 = cands.topk(2, dim=-1, largest=False).values
+    clear = top2[..., 1] - top2[..., 0] > 2 * SSIM_MAP_TOL
+    assert bool(clear.any())
+    assert bool((arg == want_arg)[clear].all())
 
 
 @pytest.mark.parametrize("shape", [(8, 3, 320, 1024), (2, 3, 37, 53), (3, 1, 4, 5)], ids=str)
