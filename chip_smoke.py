@@ -21,7 +21,9 @@ Phases, one line or a few each; any failure raises and exits non-zero:
   5. training kernels: every kernel (the SQL forwards and backwards, the
      warp forward, coordinate and image backward in border and zeros
      padding, the SSIM forward, identity min and backward, the identity
-     stack, the ColorJitter) against its plain version at the training
+     stack, the ColorJitter, the last also timed beside the two-pass
+     kernel of tools/jitter_two_pass.cu, built alone, in turns, with its
+     grid printed) against its plain version at the training
      steps' shapes (flagship B=8, 320x1024, 2 warped and 2 identity
      sources, jitter on [8,3,320,1024,3]; indoor B=8, 288x384, the SQL ops
      at N=144*192 with 64 bins, the warps on 3 and 1 channels with samples
@@ -58,7 +60,8 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      the forward, no identity min), with their loss held against the plain
      route's. With --profile, a torch.profiler breakdown of two flagship
      steps (top kernels, device idle share; the trace into
-     runs/train_step_trace.json) and of two indoor micro-steps;
+     runs/train_step_trace.json), of the flip + ColorJitter alone by kernel,
+     and of two indoor micro-steps;
   7. indoor: the indoor argfile's step (args_files/indoor/nyu_288x384.txt:
      batch 8, 288x384, ResNet-50, 64 bins, RectifyNet, occlusion-weighted
      loss, gradient accumulation over 2 micro-steps; seeded weights, a
@@ -75,6 +78,7 @@ Without a visible CUDA card it exits 1 and prints no result. It imports
 nothing of JAX and nothing of the JAX package (sfmnext_tpu).
 """
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -118,9 +122,11 @@ SQL_SOURCE = "sfmnext_tpu_torch/csrc/sql_kernel.cu"
 WARP_SOURCE = "sfmnext_tpu_torch/csrc/warp_kernel.cu"
 SSIM_SOURCE = "sfmnext_tpu_torch/csrc/ssim_kernel.cu"
 JITTER_SOURCE = "sfmnext_tpu_torch/csrc/jitter_kernel.cu"
+# the ColorJitter kernel before the one-pass design, built alone and timed beside it
+TWO_PASS_JITTER = ROOT / "tools" / "jitter_two_pass.cu"
 # the device functions of sfmnext_tpu_torch/csrc/*.cu, as the profiler names them
 PORT_KERNEL = re.compile(r"::(sql_\w+|sum_partials|warp_\w+_kernel|ssim_\w+_kernel|"
-                         r"jitter_\w+_kernel)[(<]")
+                         r"jitter_kernel)[(<]")
 KERNELS = {  # kernels-line name -> (source, the TPU kernel it replaces)
     "sql_summary": (SQL_SOURCE, "sfmnext_tpu/ops/pallas/sql_kernel.py:77"),     # _fq_fwd_kernel
     "sql_depth": (SQL_SOURCE, "sfmnext_tpu/ops/pallas/sql_kernel.py:237"),      # _bins_fwd_kernel
@@ -236,7 +242,8 @@ INDOOR_GRAD_RTOL = {"depth": 1e-2, "pose": 1e-2}
 # the 9e-4 constant: maps and min to 1e-4, the argument where the winner
 # leads by more than 2e-4; the backward divides by the squared SSIM
 # denominator and rounds to bf16: 1e-2 of its largest value. The jitter
-# computes the plain float32 formulas with FMAs: 1e-5.
+# computes the plain float32 formulas with FMAs, hue's quotients by the
+# hardware's reciprocal: 1e-5.
 SSIM_MAP_TOL = 1e-4
 SSIM_BWD_SCALED_TOL = 1e-2
 JITTER_TOL = 1e-5
@@ -310,6 +317,53 @@ def turns_ms(kernel, library):
     for fn in (kernel, library, library, kernel):
         times[fn] += device_times(fn)
     return statistics.median(times[kernel]), statistics.median(times[library])
+
+
+def start_alone_build(source, lib, defines=()):
+    """nvcc for one kernel source with a plain C interface alone, into its
+    own shared library ``lib``; started, not waited for: (command, process)."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-shared", "-o", str(lib), str(source)]
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_alone_build(cmd, proc, tag):
+    """Wait for ``start_alone_build``'s nvcc, print its registers and
+    spills, and load the library."""
+    out, err = proc.communicate()
+    require(proc.returncode == 0, f"nvcc failed for {cmd[-1]}:\n{err}")
+    for line in (out + err).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build {tag}] {line.strip()}", flush=True)
+    return ctypes.CDLL(cmd[cmd.index("-o") + 1])
+
+
+def jitter_entry(lib, two_pass):
+    """The ``color_jitter`` entry of a library built alone, as a function of
+    the wrapper's arguments: the one-pass C interface, or the two-pass one
+    with its partial sums (``two_pass``)."""
+    fn = lib.color_jitter
+    fn.argtypes = [ctypes.c_void_p] * (5 if two_pass else 4) + [ctypes.c_int] * (
+        5 if two_pass else 4) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(color, order, factors, do_jit):
+        b, f, h, w, _ = color.shape
+        ops = torch.cat([order, do_jit.to(torch.int32)[:, None]], dim=1).contiguous()
+        out = torch.empty_like(color)
+        stream = _build.stream(color.device)
+        if two_pass:
+            n = b * f * -(-(h * w) // 1024)  # partial sums: one a 1024-pixel block
+            partials = torch.empty(n, device=color.device, dtype=torch.float32)
+            err = fn(color.data_ptr(), ops.data_ptr(), factors.data_ptr(), out.data_ptr(),
+                     partials.data_ptr(), b, f, h, w, n, stream)
+        else:
+            err = fn(color.data_ptr(), ops.data_ptr(), factors.data_ptr(), out.data_ptr(),
+                     b, f, h, w, stream)
+        require(err == 0, f"color_jitter built alone failed: CUDA error {err}")
+        return out
+
+    return run
 
 
 def kernel_inputs(dev, hw, seed):
@@ -756,10 +810,12 @@ def loss_inputs(dev, b, h, w, n, m, seed):
     return preds, idents, target, noise
 
 
-def check_loss_kernels(dev):
+def check_loss_kernels(dev, two_pass_jitter):
     """Phase 5, the loss and augmentation kernels. Returns {name:
     {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}} at the
-    flagship step's shapes; no single PyTorch call computes any of them."""
+    flagship step's shapes; no single PyTorch call computes any of them.
+    The jitter is also timed beside ``two_pass_jitter`` (``jitter_entry``
+    of the two-pass kernel), in turns."""
     results = {}
     weight, ldt = 0.85, torch.bfloat16  # the flagship step's loss
     for b, (hh, ww), n, m in ((B_TRAIN, HW_TRAIN, 2, 2), (2, HW_RAGGED, 3, 3)):
@@ -884,11 +940,23 @@ def check_loss_kernels(dev):
                 f"color_jitter disagrees with its plain version at {tuple(color.shape)}")
         if main:
             n_px = b * frames * hh * ww
+            kernel = lambda: jitter_kernel.color_jitter(color, order, factors, do_jit)
             results["color_jitter"] = timed_result(
-                "color_jitter", err,
-                lambda: jitter_kernel.color_jitter(color, order, factors, do_jit),
+                "color_jitter", err, kernel,
                 lambda: jitter_kernel.plain_color_jitter(color, order, factors, do_jit),
                 2 * 4 * n_px * 3 + 4 * b * 9, JITTER_OPS * int(do_jit.sum()) * frames * hh * ww)
+            earlier = lambda: two_pass_jitter(color, order, factors, do_jit)
+            err_two, ok_two = compare(earlier(), want, 0.0, JITTER_TOL)
+            require(ok_two, f"the two-pass jitter disagrees with the plain version: {err_two:.4e}")
+            ms, two_ms = turns_ms(kernel, earlier)
+            print(f"[train-kernel] color_jitter beside the two-pass kernel "
+                  f"({TWO_PASS_JITTER.relative_to(ROOT)}, max_abs_err {err_two:.4e}), in turns: "
+                  f"kernel {ms:.4f} ms, two-pass {two_ms:.4f} ms ({ms / two_ms:.3f}x), bound "
+                  f"{results['color_jitter']['bound_ms']:.4f} ms", flush=True)
+            clusters, kept, chunks = jitter_kernel.grid(hh, ww, dev.index)
+            print(f"[train-kernel] color_jitter grid: one wave of {clusters} clusters of "
+                  f"{jitter_kernel.CLUSTER} blocks over {b * frames} frames; {kept} of a block's "
+                  f"{chunks} chunks of its frame's span kept in shared memory", flush=True)
     return results
 
 
@@ -981,6 +1049,7 @@ def drive_training(dev, profile=False):
           f"peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)", flush=True)
     if profile:
         profile_steps(dev, step, batch, gen)
+        profile_augmentation(batch, gen)
     del models, adam, scheduler, step
     compare_steps(dev, opt, batch)
     return launches
@@ -1223,6 +1292,30 @@ def profile_steps(dev, step, batch, gen, what="steps", trace="train_step_trace.j
     prof.export_chrome_trace(str(out / trace))
 
 
+def profile_augmentation(batch, gen, calls=5):
+    """torch.profiler over ``calls`` flips and jitters of the flagship batch
+    (``augment_batch``, the step's draws): device time a call by kernel,
+    the flip's ``color.flip(3)`` and ``torch.where`` beside the jitter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            augment.augment_batch(batch, gen)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total, count = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (total + e.time_range.elapsed_us(), count + 1)
+    busy = sum(total for total, _ in by_name.values())
+    print(f"[profile] flip + ColorJitter of the flagship batch: {busy / calls / 1e3:.4f} ms of "
+          f"device time a call ({calls} calls)", flush=True)
+    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile]   {total / calls / 1e3:9.4f} ms/call  {count // calls:3d}x  {name[:90]}",
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1239,16 +1332,18 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; TF32 off", flush=True)
 
     t0 = time.perf_counter()
+    alone = start_alone_build(TWO_PASS_JITTER, _build.BUILD_DIR / "libjitter_two_pass.so")
     _build.library()  # builds with nvcc, then loads
     print(f"[build] {time.perf_counter() - t0:.1f} s -> "
           f"{_build.LIB_PATH.relative_to(ROOT)}", flush=True)
     for line in _build.LOG_PATH.read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
+    two_pass_jitter = jitter_entry(finish_alone_build(*alone, "two-pass jitter"), two_pass=True)
 
     check_kernels(dev)
     paths = {"serve": drive_slice(dev)}
-    kernels = {**check_training_kernels(dev), **check_loss_kernels(dev)}
+    kernels = {**check_training_kernels(dev), **check_loss_kernels(dev, two_pass_jitter)}
     paths["train"] = drive_training(dev, profile)
     drive_no_ssim_step(dev)
     paths["avg"] = drive_avg_step(dev)

@@ -113,7 +113,7 @@ def library() -> ctypes.CDLL:
         "ssim_fwd": "app" + "i" * 5 + "f",
         "ssim_ident_min": "appppp" + "i" * 6 + "f",
         "ssim_bwd": "aappp" + "i" * 5 + "f",
-        "color_jitter": "p" * 5 + "i" * 5,
+        "color_jitter": "p" * 4 + "i" * 4,
     }
     for name, sig in signatures.items():
         fn = getattr(lib, name)
@@ -123,6 +123,8 @@ def library() -> ctypes.CDLL:
     lib.sql_bwd_blocks_per_sm.restype = i32
     lib.sql_summary_blocks_per_sm.argtypes = [i32, i32]
     lib.sql_summary_blocks_per_sm.restype = i32
+    lib.color_jitter_grid.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.color_jitter_grid.restype = i32
     lib.ssim_blocks_per_sm.argtypes = [i32, i32]
     lib.ssim_blocks_per_sm.restype = i32
     lib.sql_kernel_error_string.argtypes = [i32]

@@ -19,11 +19,14 @@ it, a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from sfmnext_tpu_torch.ops import _build
 
-PIXELS_PER_BLOCK = 1024  # kPixPerBlock in csrc/jitter_kernel.cu
+CLUSTER = 16  # blocks a cluster: kCluster in csrc/jitter_kernel.cu
+
 _GRAY = (0.299, 0.587, 0.114)
 
 
@@ -125,16 +128,25 @@ def color_jitter(color: torch.Tensor, order: torch.Tensor, factors: torch.Tensor
         return plain_color_jitter(color, order, factors, do_jit)
     ops = torch.cat([order, do_jit.to(torch.int32)[:, None]], dim=1).contiguous()
     out = torch.empty_like(color)
-    n_partials = b * f * -(-(h * w) // PIXELS_PER_BLOCK)
-    partials = torch.empty(n_partials, device=dev, dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.color_jitter(color.data_ptr(), ops.data_ptr(), factors.data_ptr(),
-                               out.data_ptr(), partials.data_ptr(), b, f, h, w, n_partials,
-                               _build.stream(dev))
+                               out.data_ptr(), b, f, h, w, _build.stream(dev))
     _build.check_error(lib, err, "color_jitter")
     color_jitter.launches += 1
     return out
 
 
 color_jitter.launches = 0
+
+
+def grid(h: int, w: int, device_index: int):
+    """The launch ``color_jitter`` makes on the card for frames of h x w:
+    (clusters of ``CLUSTER`` blocks, one wave; chunks of 32 groups of a
+    block's span kept in shared memory; the span's chunks)."""
+    lib = _build.library()
+    out = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device_index):
+        err = lib.color_jitter_grid(h, w, *[ctypes.byref(x) for x in out])
+    _build.check_error(lib, err, "color_jitter_grid")
+    return tuple(x.value for x in out)

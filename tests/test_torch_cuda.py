@@ -49,8 +49,12 @@ at widths off its 32-column tiles and 16-byte vectors (W = 1025, 9, 70,
 134), at H = 4 and with 1 and 8 sources; it has no atomics, so two calls
 give the same bits. The depth forward is also held at the main paths' shapes
 (serving batch 1, indoor 64 bins, E = 128). The
-jitter kernel computes the plain float32 formulas with FMAs: 1e-5; a
-sample without jitter is copied bit for bit.
+jitter kernel computes the plain float32 formulas with FMAs, hue's
+quotients by the hardware's reciprocal: 1e-5, at the flagship stack, a
+ragged frame, frames smaller than a cluster's blocks or one block's
+threads, 65,537 frames, contrast at each position of the order, and hue
+on its sector boundaries; a sample without jitter is copied bit for bit,
+and two calls give the same bits.
 """
 
 import pytest
@@ -597,15 +601,29 @@ def test_ssim_ident_min_matches_plain(dev, shape, with_noise):
     assert bool((arg == want_arg)[clear].all())
 
 
-@pytest.mark.parametrize("shape", [(8, 3, 320, 1024), (2, 3, 37, 53), (3, 1, 4, 5)], ids=str)
-def test_jitter_kernel_matches_plain(dev, shape):
-    b, f, h, w = shape
-    gen = torch.Generator(device=dev).manual_seed(4)
+def _jitter_inputs(dev, b, f, h, w, seed=4):
+    """A stack in [0, 1] and draws with contrast first in sample 0 and last
+    in sample 1, every third sample left unjittered."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     color = torch.rand(b, f, h, w, 3, device=dev, generator=gen)
     order, factors, _ = augment.jitter_params(gen, b)
     order[0] = torch.tensor([1, 0, 2, 3], device=dev, dtype=torch.int32)  # contrast first
-    order[1] = torch.tensor([3, 2, 0, 1], device=dev, dtype=torch.int32)  # contrast last
+    if b > 1:
+        order[1] = torch.tensor([3, 2, 0, 1], device=dev, dtype=torch.int32)  # contrast last
     do_jit = torch.arange(b, device=dev) % 3 != 2  # mixed
+    return color, order, factors, do_jit
+
+
+# (B, F, H, W): the flagship stack; a ragged frame (H*W % 4 != 0, pixels
+# one at a time); frames of fewer 4-pixel groups than a cluster has blocks,
+# and of fewer than one block has threads; B*F = 65,537 frames of 4x5
+JITTER_SHAPES = [(8, 3, 320, 1024), (2, 3, 37, 53), (3, 1, 4, 5), (2, 2, 24, 40),
+                 (65537, 1, 4, 5)]
+
+
+@pytest.mark.parametrize("shape", JITTER_SHAPES, ids=str)
+def test_jitter_kernel_matches_plain(dev, shape):
+    color, order, factors, do_jit = _jitter_inputs(dev, *shape)
     before = jitter_kernel.color_jitter.launches
     got = jitter_kernel.color_jitter(color, order, factors, do_jit)
     torch.cuda.synchronize()
@@ -613,3 +631,70 @@ def test_jitter_kernel_matches_plain(dev, shape):
     want = jitter_kernel.plain_color_jitter(color, order, factors, do_jit)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     assert torch.equal(got[~do_jit], color[~do_jit])
+
+
+@pytest.mark.parametrize("at", range(4))
+def test_jitter_contrast_at_each_position(dev, at):
+    """Contrast at position ``at`` of every sample's order: the mean is taken
+    after the ops before it, on frames the cluster's blocks share."""
+    b = 6
+    color, _, factors, do_jit = _jitter_inputs(dev, b, 3, 96, 160, seed=at)
+    others = torch.tensor([[0, 2, 3], [3, 2, 0], [2, 0, 3]], dtype=torch.int32)
+    rows = [others[i % 3].tolist() for i in range(b)]
+    order = torch.tensor([r[:at] + [1] + r[at:] for r in rows], device=dev, dtype=torch.int32)
+    got = jitter_kernel.color_jitter(color, order, factors, do_jit)
+    torch.cuda.synchronize()
+    want = jitter_kernel.plain_color_jitter(color, order, factors, do_jit)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got[~do_jit], color[~do_jit])
+
+
+@pytest.mark.parametrize("shape", [JITTER_SHAPES[0], JITTER_SHAPES[1]], ids=str)
+def test_jitter_kernel_is_deterministic(dev, shape):
+    """Two calls agree bit for bit (the frame's mean is summed in a fixed
+    order), each one launch; skipped samples are copied bit for bit."""
+    color, order, factors, do_jit = _jitter_inputs(dev, *shape, seed=9)
+    runs = []
+    for _ in range(2):
+        before = jitter_kernel.color_jitter.launches
+        runs.append(jitter_kernel.color_jitter(color, order, factors, do_jit))
+        assert jitter_kernel.color_jitter.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0][~do_jit], color[~do_jit])
+
+
+def test_jitter_grid_is_one_wave_of_clusters(dev):
+    """At the flagship frame the clusters fit the card at once and keep
+    most of each block's span in shared memory between the two phases."""
+    clusters, kept, chunks = jitter_kernel.grid(320, 1024, torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 1 <= clusters and clusters * jitter_kernel.CLUSTER <= sms
+    assert 0.9 * chunks <= kept <= chunks
+
+
+def test_jitter_hue_at_sector_boundaries(dev):
+    """Hue alone (the other factors 1) on pixels whose hue sits on a sector
+    boundary of the HSV round trip (two channels equal, or a grey), shifted
+    by 0, +-1/6 and 0.1: the kernel's quotients hold the plain version's to
+    1e-5 where floor(h * 6) decides the sector."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, h, w = 4, 64, 96
+    color = torch.rand(b, 1, h, w, 3, device=dev, generator=gen)
+    rows = torch.arange(h, device=dev) % 4
+    r, g, bl = color.unbind(-1)
+    g = torch.where(rows[:, None] == 0, r, g)   # r = g: sector 0 | 1 (or 3 | 4)
+    bl = torch.where(rows[:, None] == 1, g, bl)  # g = b: sector 2 | 3 (or 5 | 0)
+    bl = torch.where(rows[:, None] == 2, r, bl)  # r = b: sector 4 | 5 (or 1 | 2)
+    g = torch.where(rows[:, None] == 3, r, g)    # grey
+    bl = torch.where(rows[:, None] == 3, r, bl)
+    color = torch.stack([r, g, bl], dim=-1).contiguous()
+    order = torch.tensor([[3, 0, 1, 2], [0, 3, 2, 1], [2, 1, 3, 0], [1, 2, 0, 3]], device=dev,
+                         dtype=torch.int32)
+    factors = torch.ones(b, 4, device=dev)
+    factors[:, 3] = torch.tensor([0.0, 1 / 6, -1 / 6, 0.1], device=dev)
+    do_jit = torch.ones(b, dtype=torch.bool, device=dev)
+    got = jitter_kernel.color_jitter(color, order, factors, do_jit)
+    torch.cuda.synchronize()
+    want = jitter_kernel.plain_color_jitter(color, order, factors, do_jit)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
