@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SQLdepth inference path, its flagship
-self-supervised training step, its --avg_reprojection variant and the
-indoor training step on one CUDA card.
+self-supervised training step, its --avg_reprojection variant, the
+indoor training step and the Trainer on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -73,7 +73,20 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      statistics on every one; one kernel micro-step held against one plain
      micro-step in bf16 and in float32; median micro-step time, images/s
      and peak memory;
-  8. one JSON line of kernel results, then the result line.
+  8. trainer: training/trainer.Trainer at the flagship argfile with
+     --weights_init scratch, fed synthetic batches with ground-truth depth:
+     2 epochs of 4 steps (a log and one val minibatch through the eval step
+     on batches 0 and 2 of each epoch, PNG panels, a checkpoint after each
+     epoch), then a second Trainer with --load_weights_folder latest and 3
+     epochs, which resumes at step 8 and trains epoch 2; finite losses and
+     de/abs_rel in the train and val jsonl, weights_0..2 read by
+     load_reference_folder, the resumed step and Adam state, and exactly
+     the launches of 12 train steps and 6 val steps; the Trainer's median
+     step (beside the bare step of phase 6), val and checkpoint-write
+     times, where a run's wall time went, and the parts of a val minibatch
+     (upload, eval step, depth metrics, panels) timed alone;
+  9. one JSON line of kernel results (launches per path, the Trainer's
+     as launches_trainer), then the result line.
 Without a visible CUDA card it exits 1 and prints no result. It imports
 nothing of JAX and nothing of the JAX package (sfmnext_tpu).
 """
@@ -82,6 +95,7 @@ import ctypes
 import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -94,7 +108,7 @@ import torch.nn.functional as F
 
 from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.data import augment
-from sfmnext_tpu_torch.data.synthetic import make_batch
+from sfmnext_tpu_torch.data.synthetic import SyntheticDriveDataset, make_batch
 from sfmnext_tpu_torch.device import cuda_device, disable_tf32
 from sfmnext_tpu_torch.ops import (_build, geometry, jitter_kernel, sql_attention, sql_kernel,
                                    ssim_kernel, warp, warp_kernel)
@@ -102,7 +116,10 @@ from sfmnext_tpu_torch.sql_depth import SQLdepth
 from sfmnext_tpu_torch.training import pipeline
 from sfmnext_tpu_torch.training.builder import build_models
 from sfmnext_tpu_torch.training.indoor import forward_indoor
+from sfmnext_tpu_torch.training.pipeline import train_depth_metrics
 from sfmnext_tpu_torch.training.step import make_optimizer, make_train_step, select_pipeline
+from sfmnext_tpu_torch.training.trainer import Trainer
+from sfmnext_tpu_torch.utils.jax_weights import load_reference_folder
 
 ROOT = Path(__file__).resolve().parent
 ARGFILE = ROOT / "args_files" / "hisfog" / "kitti" / "resnet_320x1024.txt"
@@ -190,7 +207,21 @@ AVG_LAUNCHES = {**NO_SSIM_LAUNCHES, "ssim_fwd": 2, "identity_losses": 1, "ssim_b
 INDOOR_LAUNCHES = launches(sql_summary=3, sql_depth=3, sql_summary_bwd=3, sql_depth_bwd=3,
                            warp_border=4, warp_border_bwd=4, warp_zeros=2, warp_zeros_bwd=2,
                            warp_image_bwd=4)
+# a val step of the flagship eval step: the SQL forwards, the warps of the two
+# sources, and the fused SSIM forward and identity min, with no backward and
+# no jitter (the warps go through the kernel in eval too: the route is
+# opt.use_pallas alone)
+VAL_LAUNCHES = launches(sql_summary=1, sql_depth=1, warp_border=2, ssim_fwd=1, ssim_ident_min=1)
 TRAIN_ARGS = [str(ARGFILE)]  # batch 8, bf16, SSIM 0.85, automasking
+# the Trainer at the flagship argfile: 2 epochs of 4 steps, a log (and one val
+# minibatch) on batches 0 and 2 of each epoch, then a second Trainer resumed
+# from the latest checkpoint for a third epoch
+TRAINER_DIR = ROOT / "runs" / "chip_smoke_trainer"
+TRAINER_ARGS = TRAIN_ARGS + ["--weights_init", "scratch", "--steps_per_epoch", "4",
+                             "--log_frequency", "2", "--log_dir", str(TRAINER_DIR)]
+TRAINER_EPOCHS = (2, 3)  # the first run's epochs, the resumed run's
+TRAINER_STEPS = 4 * TRAINER_EPOCHS[1]
+TRAINER_VALS = 2 * TRAINER_EPOCHS[1]
 TRAIN_STEPS = 5
 B_TRAIN = 8
 HW_TRAIN = (320, 1024)
@@ -1052,7 +1083,7 @@ def drive_training(dev, profile=False):
         profile_augmentation(batch, gen)
     del models, adam, scheduler, step
     compare_steps(dev, opt, batch)
-    return launches
+    return launches, med
 
 
 def drive_no_ssim_step(dev):
@@ -1256,6 +1287,112 @@ def compare_indoor_steps(dev, opt, batch):
                          p16[0], *rel_errors(k16, p16), INDOOR_LOSS_RTOL, INDOOR_GRAD_RTOL)
 
 
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def drive_trainer(dev, smi, bare_step):
+    """Phase 8: the Trainer at the flagship argfile, fed synthetic batches
+    (two training batches in turn, one validation batch, all with their
+    ground-truth depth): 2 epochs of 4 steps with a log and a val
+    minibatch on batches 0 and 2 of each epoch and a checkpoint after each
+    epoch, then a second Trainer with --load_weights_folder latest and 3
+    epochs, which resumes at step 8 (epoch 2) and trains one more epoch.
+    Requires finite losses and depth metrics in both jsonl streams, the
+    weights_0/1/2 folders readable by load_reference_folder, the resumed
+    step count and Adam state, and exactly the launches of 12 train steps
+    and 6 val steps. Prints the Trainer's step, val and checkpoint times.
+    Returns the launch counts of the two runs."""
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    ds = SyntheticDriveDataset(*HW_TRAIN, seed=0)
+    train_batches = [ds.batch(B_TRAIN) for _ in range(2)]
+    loader = train_batches * 2  # an epoch's 4 batches
+    val_loader = [ds.batch(B_TRAIN)]
+    zero_counts()
+    walls, trainers, trainer = [], [], None
+    for epochs, extra in zip(TRAINER_EPOCHS, ([], ["--load_weights_folder", "latest"])):
+        del trainer
+        torch.cuda.empty_cache()
+        opt = parse_options(TRAINER_ARGS + ["--num_epochs", str(epochs), *extra])
+        trainer = Trainer(opt, loader, val_loader)
+        if extra:
+            require(trainer.step == 4 * TRAINER_EPOCHS[0], f"resumed at step {trainer.step}")
+            adam_steps = {float(st["step"]) for st in trainer.adam.state_dict()["state"].values()}
+            require(adam_steps == {4.0 * TRAINER_EPOCHS[0]},
+                    f"adam.pth not restored: Adam steps {adam_steps}")
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        trainers.append((trainer.step, trainer.timings))
+    made = counts()
+    want = {k: TRAINER_STEPS * STEP_LAUNCHES[k] + TRAINER_VALS * VAL_LAUNCHES[k] for k in made}
+    require(made == want, f"the Trainer launched {made}, not {want}")
+    require(trainers[-1][0] == TRAINER_STEPS, f"the resumed Trainer ended at step {trainers[-1][0]}")
+
+    run = TRAINER_DIR / opt.model_name
+    for mode in ("train", "val"):
+        recs = read_jsonl(run / mode / "metrics.jsonl")
+        require(len(recs) == TRAINER_VALS, f"{mode}: {len(recs)} records, not {TRAINER_VALS}")
+        require(all(np.isfinite(r["loss"]) and np.isfinite(r["de/abs_rel"]) for r in recs),
+                f"{mode}: a non-finite loss or de/abs_rel in {recs}")
+        print(f"[trainer] {mode} jsonl: steps {[r['step'] for r in recs]}, loss "
+              f"{[round(r['loss'], 6) for r in recs]}, de/abs_rel "
+              f"{[round(r['de/abs_rel'], 4) for r in recs]}", flush=True)
+    serving = build_models(opt, dev)
+    for epoch in range(TRAINER_EPOCHS[1]):
+        load_reference_folder(str(run / "models" / f"weights_{epoch}"), serving)
+    del serving
+    panels = len(list((run / "val" / "images").iterdir()))
+
+    timings = {k: [t for _, tm in trainers for t in tm[k]] for k in ("step", "val", "save")}
+    step_ms, val_ms = (statistics.median(timings[k]) * 1e3 for k in ("step", "val"))
+    print(f"[trainer] {opt.backbone}-{opt.num_layers} {opt.height}x{opt.width} batch "
+          f"{opt.batch_size} {opt.compute_dtype}: {TRAINER_STEPS} steps and {TRAINER_VALS} val "
+          f"minibatches over 2 runs (resumed at step {4 * TRAINER_EPOCHS[0]}, epoch "
+          f"{TRAINER_EPOCHS[0]}); weights_0..{TRAINER_EPOCHS[1] - 1} read by "
+          f"load_reference_folder; {panels} PNG panels; launches "
+          f"{ {k: v for k, v in made.items() if v} }", flush=True)
+    print(f"[trainer] median train step {step_ms:.2f} ms as the Trainer sees it (its "
+          f"{len(timings['step'])} log steps: batch upload to the losses' host read) beside the "
+          f"bare make_train_step's {bare_step * 1e3:.2f} ms ([train]); {smi}", flush=True)
+    print(f"[trainer] median val {val_ms:.2f} ms (eval step, depth metrics, "
+          f"{2 * 7} PNG panels; {[round(t * 1e3, 2) for t in timings['val']]}); {smi}",
+          flush=True)
+    print(f"[trainer] checkpoint write {statistics.median(timings['save']):.3f} s median "
+          f"({[round(t, 3) for t in timings['save']]} s); {smi}", flush=True)
+    print(f"[trainer] wall {[round(w, 3) for w in walls]} s a run: steps "
+          f"{sum(walls) - sum(timings['val']) - sum(timings['save']):.3f} s (with the logs' "
+          f"metrics), val {sum(timings['val']):.3f} s, checkpoints {sum(timings['save']):.3f} s; "
+          f"{smi}", flush=True)
+
+    # the parts of a val minibatch, each timed alone (host clock to a sync)
+    batch = trainer._device_batch(val_loader[0])
+    _, outputs = trainer.eval_step(batch)
+    parts = {
+        "upload": lambda: trainer._device_batch(val_loader[0]),
+        "eval step": lambda: trainer.eval_step(batch),
+        "depth metrics": lambda: train_depth_metrics(outputs["depth"], batch["depth_gt"]),
+        "panels": lambda: trainer._log_images("val", batch, outputs),
+    }
+    print(f"[trainer] a val minibatch's parts, median of 3 ms: "
+          f"{ {k: round(host_ms(fn), 2) for k, fn in parts.items()} }; {smi}", flush=True)
+    return made
+
+
+def host_ms(fn, runs=3):
+    """Median host time of fn() to a synchronize, ms."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
 def profile_steps(dev, step, batch, gen, what="steps", trace="train_step_trace.json"):
     """torch.profiler over two steps: device time by kernel and the
     device's idle share of the window; the trace into runs/."""
@@ -1326,7 +1463,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    print(smi.stdout.strip())
+    smi = smi.stdout.strip()
+    print(smi)
     disable_tf32()
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; TF32 off", flush=True)
@@ -1344,10 +1482,11 @@ def main() -> int:
     check_kernels(dev)
     paths = {"serve": drive_slice(dev)}
     kernels = {**check_training_kernels(dev), **check_loss_kernels(dev, two_pass_jitter)}
-    paths["train"] = drive_training(dev, profile)
+    paths["train"], bare_step = drive_training(dev, profile)
     drive_no_ssim_step(dev)
     paths["avg"] = drive_avg_step(dev)
     paths["indoor"] = drive_indoor(dev, profile)
+    paths["trainer"] = drive_trainer(dev, smi, bare_step)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "sfmnext_tpu"))
     require(not imported, f"JAX or the JAX package was imported: {imported}")

@@ -7,14 +7,16 @@ JAX module does (``models/resnet.py``, ``ops/sql_attention.py``, ...).
 Ported so far:
   * the bf16 single-image inference path (``sql_depth.SQLdepth``): ResNet
     encoder + DecoderBN + the SQL decoder;
-  * the self-supervised training step without SSIM and without on-device
-    augmentation (``training/{builder,pipeline,step}.py``): PoseCNN,
-    geometry, the border warp, the L1 min-reprojection loss with
-    automasking, edge-aware smoothness, Adam with the step schedule.
-Their TPU kernels run as hand-written Hopper kernels, forward and
-backward: the SQL decoder's two fused ops (``csrc/sql_kernel.cu``, wrapped
-by ``ops/sql_kernel.py``) and the warp (``csrc/warp_kernel.cu``,
-``ops/warp_kernel.py``).
+  * the outdoor and indoor self-supervised training steps
+    (``training/{builder,pipeline,indoor,step}.py``) with on-device
+    augmentation, the eval step and depth inference;
+  * the trainer surface (``training/trainer.py``, ``train.py``,
+    ``train_indoor.py``: the epoch loop, validation, depth metrics,
+    logging, checkpoints and resume) and the synthetic-convergence gate
+    (``tools/synthetic_convergence.py``).
+Their TPU kernels run as hand-written Hopper kernels (``csrc/*.cu``,
+wrapped by ``ops/*_kernel.py``), forward and backward: the SQL decoder's
+two fused ops, the warp, the SSIM loss and the ColorJitter.
 
 Conventions:
   * public entry points keep the JAX layout: images ``[B,H,W,3]`` in
@@ -26,5 +28,5 @@ Conventions:
   * the package imports ``torch`` and never ``jax``, and nothing of the
     JAX package ``sfmnext_tpu``: it keeps its own copies of what it needs
     from there (``config.py``, ``utils/torch_export.py``,
-    ``data/synthetic.py``).
+    ``data/synthetic.py``, ``data/loader.py``).
 """

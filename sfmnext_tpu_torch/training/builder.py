@@ -21,17 +21,18 @@ from sfmnext_tpu_torch.models import PoseCNN, RectifyNet, ResnetEncoderDecoder, 
 class ModelBundle:
     """The modules of one mode.
 
-    Inference (``train=False``): encoder and depth in eval mode, their
-    parameters in the compute dtype. Training: every module in train mode
-    (BatchNorm on batch statistics, dropout live) with float32 parameters;
-    ``compute_dtype`` is what the pipeline runs them in (autocast).
+    Inference (``build_models(train=False)``): encoder and depth in eval
+    mode, their parameters in the compute dtype. Training: every module in
+    train mode (BatchNorm on batch statistics, dropout live) with float32
+    parameters, which ``training/step.eval_mode`` switches to eval mode for
+    the eval step; ``compute_dtype`` is what the pipeline runs them in
+    (autocast).
     """
 
     encoder: nn.Module
     depth: nn.Module
     pose: Optional[nn.Module] = None
     rectify: Optional[nn.Module] = None
-    train: bool = False
     compute_dtype: torch.dtype = torch.float32
 
     def modules(self):
@@ -84,4 +85,4 @@ def build_models(opt, device, train: bool = False) -> ModelBundle:
         if train:
             module.float()  # float32 master weights, as the JAX params
         module.to(device).train(train)
-    return ModelBundle(**modules, train=train, compute_dtype=dtype)
+    return ModelBundle(**modules, compute_dtype=dtype)

@@ -15,11 +15,12 @@ trainer_indoor.py):
 
 The batch is ``training/pipeline.py``'s plus ``K3x3`` [B,3,3] (or ``K``'s
 corner). The networks run under autocast in the compute dtype, geometry,
-warps and losses outside it in float32. With ``opt.use_pallas`` in a
-training bundle every warp goes through ``warp_kernel.warp_sample`` (the
-Hopper kernels on the card, with the image gradient where the sampled
-rectified frame or reference depth carries one); without it, through the
-plain samples. BatchNorm running statistics update in place in the JAX
+warps and losses outside it in float32. With ``opt.use_pallas`` every
+warp goes through ``warp_kernel.warp_sample`` (the Hopper kernels on the
+card, with the image gradient where the sampled rectified frame or
+reference depth carries one), in the train step and in the eval step
+alike, as in ``training/pipeline.py``; without it, through the plain
+samples. BatchNorm running statistics update in place in the JAX
 order: the encoder's over the target pass, then each reference pass; the
 RectifyNet's over its six calls.
 """
@@ -81,7 +82,7 @@ def forward_indoor(models, batch, opt, generator=None):
     outputs = {"depth": depth, "depth_half": _nhwc(depth_half)}
 
     refs = [color[:, i].contiguous() for i in range(1, len(frame_ids))]
-    use_kernel = opt.use_pallas and models.train
+    use_kernel = opt.use_pallas
 
     # 2. rectification
     loss_rc = loss_rt = None

@@ -3,7 +3,9 @@
 ``predict_poses`` in its PoseCNN batched-pairs branch and ``forward``
 (photometric stack with SSIM or, under ``--no_ssim``, L1 alone;
 min-reprojection with automasking, or its ``--avg_reprojection`` variant;
-edge-aware smoothness). The indoor pipeline is ``training/indoor.py``.
+edge-aware smoothness) and ``train_depth_metrics`` (the train-time depth
+metrics against ground truth). The indoor pipeline is
+``training/indoor.py``.
 
 The batch is the JAX package's: ``color`` and ``color_aug`` [B,F,H,W,3]
 with F following ``opt.all_frame_ids``, ``K`` and ``inv_K`` [B,4,4], all
@@ -13,14 +15,17 @@ geometry, warps and losses run outside it, the geometry and warps in
 float32. With ``opt.use_pallas`` the SQL decoder, the warps and the SSIM
 loss go through the Hopper kernels (their plain versions for CPU
 tensors), as the JAX package routes them on a TPU; without it, through
-the plain ops.
+the plain ops. The route depends on ``opt.use_pallas`` alone, in the
+train step and in the eval step alike, here and in the indoor pipeline:
+the JAX package takes its Pallas warp in training only, but the kernel
+and the plain sample compute the same bilinear sample.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sfmnext_tpu_torch.ops import geometry, losses as L, ssim_kernel
+from sfmnext_tpu_torch.ops import geometry, losses as L, metrics as M, ssim_kernel
 from sfmnext_tpu_torch.ops.image import resize_bilinear
 from sfmnext_tpu_torch.ops.warp import warp_frame
 
@@ -160,3 +165,34 @@ def forward(models, batch, opt, generator=None):
     total = loss + opt.disparity_smoothness * smooth
     metrics = {"loss": total, "loss/reprojection": loss, "loss/smooth": smooth}
     return total, {"outputs": outputs, "metrics": metrics}
+
+
+def train_depth_metrics(depth, depth_gt, max_eval_depth: float = 80.0):
+    """Train-time depth metrics with the garg crop and median scaling, on
+    the tensors' device.
+
+    depth [B,H,W,1] is resized to depth_gt's [B,gh,gw,1], clipped to
+    [1e-3, max_eval_depth], scaled by the ratio of the masked medians of
+    the batch (GT zeros are invalid) and clipped again (reference
+    trainer.py:551-579). Returns ``ops/metrics.compute_depth_errors_masked``'s
+    dict.
+    """
+    _, gh, gw, _ = depth_gt.shape
+    pred = resize_bilinear(_nchw(depth), (gh, gw), align_corners=False).permute(0, 2, 3, 1)
+    pred = pred.clamp(1e-3, max_eval_depth)
+    crop = torch.zeros(gh, gw, dtype=torch.bool, device=depth_gt.device)
+    # garg crop fractions of the KITTI full-resolution frame (trainer.py:566-567)
+    crop[int(0.40810811 * gh):int(0.98948052 * gh), int(0.03542350 * gw):int(0.96378829 * gw)] = True
+    mask = (depth_gt > 0) & crop[None, :, :, None]
+    pred = pred * (_masked_median(depth_gt, mask) / (_masked_median(pred, mask) + 1e-7))
+    pred = pred.clamp(1e-3, max_eval_depth)
+    return M.compute_depth_errors_masked(depth_gt, pred, mask)
+
+
+def _masked_median(x, mask):
+    """The lower median of x's masked entries (index (n-1)//2 of them
+    sorted, as the JAX package's padded sort takes it), +inf when none."""
+    values = x[mask]
+    if values.numel() == 0:
+        return torch.tensor(float("inf"), device=x.device)
+    return values.median()

@@ -5,17 +5,21 @@ Adam(lr, b1 0.9, b2 0.999, eps 1e-8) with the JAX package's step schedule
 ``--diff_lr`` (the pose and rectify nets at a tenth of the rate),
 gradient accumulation over ``--accumulation_steps`` micro-steps with
 ``optax.MultiSteps`` semantics (trainer_indoor.py:295-307), the outdoor or
-indoor pipeline (``select_pipeline``), and on-device augmentation
-(``augment=True``: the flip and the ColorJitter kernel).
+indoor pipeline (``select_pipeline``), on-device augmentation
+(``augment=True``: the flip and the ColorJitter kernel), and the
+forward-only eval step and depth inference of the same modules.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from sfmnext_tpu_torch.data.augment import augment_batch
 from sfmnext_tpu_torch.device import disable_tf32
-from sfmnext_tpu_torch.training.pipeline import forward
+from sfmnext_tpu_torch.ops.image import resize_bilinear
+from sfmnext_tpu_torch.training.pipeline import autocast, forward
 
 
 def make_optimizer(opt, models, steps_per_epoch: int):
@@ -78,6 +82,18 @@ class Accumulation:
         self.scheduler.step()
         return True
 
+    def state_dict(self):
+        """The place in the cycle and, mid-cycle, the running mean of the
+        cycle's gradients (it waits in ``p.grad`` between micro-steps)."""
+        mean = [p.grad for p in self.params] if self.micro_step else None
+        return {"micro_step": self.micro_step, "mean": mean}
+
+    def load_state_dict(self, state) -> None:
+        self.micro_step = state["micro_step"]
+        mean = state["mean"]
+        for i, p in enumerate(self.params):
+            p.grad = None if mean is None else mean[i].to(p.device)
+
 
 def select_pipeline(opt):
     """The outdoor (trainer.py) or indoor (trainer_indoor.py) forward, as
@@ -103,8 +119,9 @@ def make_train_step(opt, models, optimizer, scheduler, augment: bool = False):
     averages the accumulated gradients, updates the parameters and steps
     the schedule (the BatchNorm running statistics update in every
     forward). Metrics stay on the device (no sync): the losses, and the
-    full-resolution depth under ``"depth"``. Turns TF32 off, so float32
-    products stay float32.
+    full-resolution depth under ``"depth"``. The step's ``Accumulation``
+    is its ``accumulation`` attribute (a checkpoint saves its state).
+    Turns TF32 off, so float32 products stay float32.
     """
     disable_tf32()
     forward_fn = select_pipeline(opt)
@@ -125,4 +142,59 @@ def make_train_step(opt, models, optimizer, scheduler, augment: bool = False):
         metrics["depth"] = aux["outputs"]["depth"].detach()
         return metrics
 
+    train_step.accumulation = accumulation
     return train_step
+
+
+@contextlib.contextmanager
+def eval_mode(models):
+    """The bundle's modules in eval mode (BatchNorm on its running
+    statistics, which it leaves alone; dropout off) and without autograd;
+    every submodule's own mode is restored on the way out."""
+    modes = [(m, m.training) for mod in models.modules().values() for m in mod.modules()]
+    try:
+        for mod in models.modules().values():
+            mod.eval()
+        with torch.no_grad():
+            yield
+    finally:
+        for m, training in modes:
+            m.training = training
+
+
+def make_eval_step(opt, models):
+    """The forward-only step: ``eval_step(batch) -> (metrics, outputs)``.
+
+    Runs ``select_pipeline(opt)``'s forward on the train step's own modules
+    in ``eval_mode`` with no generator (no tie-break noise), as the JAX
+    package's eval step runs the eval-mode models on the shared parameters
+    with no rng. A batch without ``color_aug`` uses ``color``. Turns TF32
+    off.
+    """
+    disable_tf32()
+    forward_fn = select_pipeline(opt)
+
+    def eval_step(batch):
+        if "color_aug" not in batch:
+            batch = {**batch, "color_aug": batch["color"]}
+        with eval_mode(models):
+            _, aux = forward_fn(models, batch, opt, None)
+        return aux["metrics"], aux["outputs"]
+
+    return eval_step
+
+
+def make_infer_fn(opt, models):
+    """Depth inference on the bundle's modules in ``eval_mode``:
+    ``infer(images [B,H,W,3]) -> depth [B,H,W,1]`` float32, the decoder's
+    half-resolution depth resized to the input's size. Turns TF32 off."""
+    disable_tf32()
+
+    def infer(images):
+        h, w = images.shape[1:3]
+        with eval_mode(models):
+            with autocast(models, images.device):
+                out = models.depth(models.encoder(images.permute(0, 3, 1, 2)))
+            return resize_bilinear(out["disp0"], (h, w), align_corners=False).permute(0, 2, 3, 1)
+
+    return infer

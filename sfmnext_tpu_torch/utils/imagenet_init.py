@@ -1,0 +1,74 @@
+"""ImageNet-pretrained ResNet trunks (``--weights_init pretrained``).
+Counterpart of ``sfmnext_tpu/utils/imagenet_init.py`` for the trunks the
+port builds.
+
+Behavioral reference:
+  - networks/resnet_encoder.py:44,57 — torchvision ImageNet ResNet weights
+    for the depth encoder; :55-61 tiles ``conv1.weight`` across stacked
+    input frames and divides by the frame count;
+  - networks/rectify_net.py:13-15 — a pretrained 2-image ResNet-18.
+
+The weights are torchvision state dicts (``resnet{N}.pth``) in a local
+directory: ``$SFMNEXT_WEIGHTS``, else ``<repo>/weights``. Nothing is
+fetched: an absent file raises ``FileNotFoundError`` with the expected
+path. ``--weights_init scratch`` skips all of this.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from sfmnext_tpu_torch.models.resnet import ResNetEncoder
+
+
+def weights_dir() -> str:
+    env = os.environ.get("SFMNEXT_WEIGHTS", "")
+    if env:
+        return env
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    return os.path.join(repo, "weights")
+
+
+def weights_path(fname: str) -> str:
+    """``fname`` in the weights directory; raises FileNotFoundError with
+    the expected location when it is absent."""
+    path = os.path.join(weights_dir(), fname)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"weights_init='pretrained' needs {fname} at {path} "
+            f"(set $SFMNEXT_WEIGHTS or place the torchvision state_dict there; "
+            f"pass '--weights_init scratch' for random init)"
+        )
+    return path
+
+
+@torch.no_grad()
+def load_imagenet_resnet(encoder: ResNetEncoder, num_layers: int, num_input_images: int = 1):
+    """Load ``resnet{num_layers}.pth`` into ``encoder``'s trunk (its
+    ``fc`` head dropped); a stem over n stacked frames takes ``conv1``
+    tiled over the input channels and divided by n."""
+    sd = torch.load(weights_path(f"resnet{num_layers}.pth"), map_location="cpu",
+                    weights_only=True)
+    sd = {k: v for k, v in sd.items() if not k.startswith("fc.")}
+    if num_input_images > 1:
+        sd["conv1.weight"] = torch.cat([sd["conv1.weight"]] * num_input_images, 1) / num_input_images
+    # older torchvision files carry no num_batches_tracked; nothing else may be missing
+    missing, unexpected = encoder.encoder.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"resnet{num_layers}.pth does not fit the ResNet-{num_layers} trunk: "
+                         f"missing {missing}, unexpected {unexpected}")
+
+
+def apply_weights_init(opt, models) -> None:
+    """ImageNet weights into the depth encoder's ResNet trunk (its decoder
+    stays random, as in the reference) and RectifyNet's 2-image ResNet-18.
+    No-op for ``--weights_init scratch``."""
+    if opt.weights_init != "pretrained":
+        return
+    load_imagenet_resnet(models.encoder.encoder, opt.num_layers)
+    if models.rectify is not None:
+        load_imagenet_resnet(models.rectify.encoder, 18, num_input_images=2)
+    print(f"-> ImageNet init from {weights_dir()} ({opt.backbone})")
