@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SQLdepth inference path, its flagship
 self-supervised training step, its --avg_reprojection variant, the
-indoor training step and the Trainer on one CUDA card.
+indoor training step, the Trainer and the evaluation on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -85,8 +85,28 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      step (beside the bare step of phase 6), val and checkpoint-write
      times, where a run's wall time went, and the parts of a val minibatch
      (upload, eval step, depth metrics, panels) timed alone;
-  9. one JSON line of kernel results (launches per path, the Trainer's
-     as launches_trainer), then the result line.
+  9. eval: the float32 evaluation (sfmnext_tpu_torch/evaluation.py) at the
+     flagship argfile with --eval_mono: seed-0 weights saved as a
+     reference-layout folder under runs/chip_smoke_eval/ and loaded by
+     load_eval_variables; 64 synthetic 320x1024 frames in MonoDataset's
+     item layout (the datasets' output after PIL decoding, which the
+     card's machine lacks) through PrefetchLoader into predict_depths at
+     --eval_batch_size 1 and 8, each with and without --post_process, and
+     at 16 (the forward batch of 8 with --post_process): depths finite and
+     inside [min_depth, max_depth], batches 8 and 16 equal to batch 1
+     within 1e-5 of the largest depth, the first 2 images equal
+     to the same folder's float32 forward on the CPU within 1e-4, and no
+     kernel launch in the phase (the SQL decoder runs unfused in float32,
+     as the JAX evaluation does); then evaluate() on the saved
+     predictions against 64 synthetic 375x1242 ground-truth maps of an
+     eigen split (its row equal to evaluate_predictions', all seven
+     metrics finite) and the benchmark split's export (64 PNG files);
+     eval images/s, the host's resize-and-metrics ms an image and the
+     phase's wall time; with --profile, torch.profiler breakdowns of the
+     float32 forward at batch 8 and 16;
+ 10. one JSON line of kernel results (launches per path, the Trainer's
+     as launches_trainer, the evaluation's as launches_eval), then the
+     result line.
 Without a visible CUDA card it exits 1 and prints no result. It imports
 nothing of JAX and nothing of the JAX package (sfmnext_tpu).
 """
@@ -94,6 +114,7 @@ nothing of JAX and nothing of the JAX package (sfmnext_tpu).
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -106,8 +127,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sfmnext_tpu_torch import evaluation
 from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.data import augment
+from sfmnext_tpu_torch.data.kitti import KITTIRAWDataset
+from sfmnext_tpu_torch.data.loader import PrefetchLoader
 from sfmnext_tpu_torch.data.synthetic import SyntheticDriveDataset, make_batch
 from sfmnext_tpu_torch.device import cuda_device, disable_tf32
 from sfmnext_tpu_torch.ops import (_build, geometry, jitter_kernel, sql_attention, sql_kernel,
@@ -222,6 +246,16 @@ TRAINER_ARGS = TRAIN_ARGS + ["--weights_init", "scratch", "--steps_per_epoch", "
 TRAINER_EPOCHS = (2, 3)  # the first run's epochs, the resumed run's
 TRAINER_STEPS = 4 * TRAINER_EPOCHS[1]
 TRAINER_VALS = 2 * TRAINER_EPOCHS[1]
+# the evaluation at the flagship argfile: 64 frames (the Eigen split has 697),
+# their ground truth at KITTI's 375x1242
+EVAL_DIR = ROOT / "runs" / "chip_smoke_eval"
+EVAL_ARGS = [str(ARGFILE), "--eval_mono", "--num_workers", "2",
+             "--eval_out_dir", str(EVAL_DIR / "out")]
+EVAL_IMAGES = 64
+EVAL_GT_HW = (375, 1242)
+EVAL_RUNS = ((1, False), (1, True), (8, False), (8, True), (16, False))  # batch, post_process
+EVAL_BATCH_TOL = 1e-5  # batch 8 vs batch 1, of the largest depth (cuDNN may pick other kernels)
+EVAL_CPU_TOL = 1e-4  # the card vs the CPU in float32, of the largest depth
 TRAIN_STEPS = 5
 B_TRAIN = 8
 HW_TRAIN = (320, 1024)
@@ -1381,6 +1415,135 @@ def drive_trainer(dev, smi, bare_step):
     return made
 
 
+class FrameItems:
+    """Decoded frames in MonoDataset's item layout ('color' [1,H,W,3], 'K',
+    'inv_K' of the KITTI datasets): what the datasets yield after PIL's
+    decode and LANCZOS resize."""
+
+    def __init__(self, images):
+        self.images = images
+        self.K, self.inv_K = KITTIRAWDataset("", [], *images.shape[1:3], [0]).intrinsics()
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return {"color": self.images[i:i + 1], "K": self.K, "inv_K": self.inv_K}
+
+
+def drive_eval(dev, smi, profile=False):
+    """Phase 9: the float32 evaluation at the flagship argfile. Returns the
+    kernels' launch counts over the phase (all 0)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    opt = parse_options(EVAL_ARGS)
+    folder = EVAL_DIR / "weights"  # seed-0 weights, the reference's layout
+    folder.mkdir(parents=True)
+    seeded = build_models(dataclasses.replace(opt, compute_dtype="float32"), "cpu")
+    for name in ("encoder", "depth"):
+        torch.save(getattr(seeded, name).state_dict(), folder / f"{name}.pth")
+    del seeded
+    opt = dataclasses.replace(opt, load_weights_folder=str(folder))
+    images = synthetic_images(EVAL_IMAGES, opt.height, opt.width, seed=5)
+    zero_counts()
+    models = evaluation.load_eval_variables(opt, dev)
+
+    def predict(batch_size, post_process, n=EVAL_IMAGES):
+        loader = PrefetchLoader(FrameItems(images[:n]), batch_size, shuffle=False,
+                                num_workers=opt.num_workers, drop_last=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluation.predict_depths(
+            dataclasses.replace(opt, eval_batch_size=batch_size), models, loader, post_process)
+        return out, time.perf_counter() - t0
+
+    preds = {}
+    h2, w2 = opt.height // 2, opt.width // 2
+    for batch_size, post_process in EVAL_RUNS:
+        predict(batch_size, post_process, n=2 * batch_size)  # warm-up: cuDNN plans
+        out, wall = predict(batch_size, post_process)
+        require(out.shape == (EVAL_IMAGES, h2, w2), f"predictions {out.shape}")
+        require(bool(np.isfinite(out).all()), "a non-finite depth")
+        lo, hi = float(out.min()), float(out.max())
+        require(opt.min_depth <= lo and hi <= opt.max_depth,
+                f"depth [{lo}, {hi}] outside [{opt.min_depth}, {opt.max_depth}]")
+        preds[batch_size, post_process] = out
+        print(f"[eval] {opt.backbone}-{opt.num_layers} {opt.height}x{opt.width} float32, "
+              f"--eval_batch_size {batch_size}{' --post_process' if post_process else ''}: "
+              f"{EVAL_IMAGES / wall:.2f} images/s ({EVAL_IMAGES} images in {wall:.3f} s, "
+              f"loader to host predictions), depth [{lo:.4f}, {hi:.4f}]; {smi}", flush=True)
+    for (batch_size, post_process), got in preds.items():
+        one = preds[1, post_process]
+        if batch_size > 1:
+            err, limit = float(np.abs(got - one).max()), EVAL_BATCH_TOL * float(np.abs(one).max())
+            print(f"[eval] batch {batch_size} vs batch 1"
+                  f"{' (--post_process)' if post_process else ''}: max_abs_err {err:.3e}, "
+                  f"limit {limit:.3e} ({EVAL_BATCH_TOL} of the largest depth)", flush=True)
+            require(err <= limit, f"batch {batch_size} disagrees with batch 1")
+
+    cpu_models = evaluation.load_eval_variables(opt, "cpu")
+    want = evaluation.predict_depths(opt, cpu_models, [{"color": images[:2, None]}], False)
+    del cpu_models
+    err, limit = float(np.abs(preds[1, False][:2] - want).max()), EVAL_CPU_TOL * float(
+        np.abs(want).max())
+    print(f"[eval] the card vs the CPU, float32, first 2 images: max_abs_err {err:.3e}, limit "
+          f"{limit:.3e} ({EVAL_CPU_TOL} of the largest depth; TF32 off)", flush=True)
+    require(err <= limit, "the card disagrees with the CPU")
+    if profile:  # kernel breakdowns of the float32 forward at batch 8 and 16
+        with torch.inference_mode():
+            for b in (8, 16):
+                x = torch.as_tensor(images[:b], device=dev).permute(0, 3, 1, 2)
+                profile_steps(dev, lambda x, _: models.depth(models.encoder(x)), x, None,
+                              what=f"float32 eval forwards at batch {b}",
+                              trace=f"eval_b{b}_trace.json")
+
+    # scoring: an eigen split of synthetic ground truth (velodyne-like: 5%
+    # of the pixels), the predictions through evaluate(), and the benchmark
+    # split's PNG export
+    rng = np.random.RandomState(6)
+    gts = np.empty(EVAL_IMAGES, object)
+    for i in range(EVAL_IMAGES):
+        gts[i] = ((rng.rand(*EVAL_GT_HW) * 70 + 2)
+                  * (rng.rand(*EVAL_GT_HW) < 0.05)).astype(np.float32)
+    (EVAL_DIR / "splits" / "eigen").mkdir(parents=True)
+    np.savez_compressed(EVAL_DIR / "splits" / "eigen" / "gt_depths.npz", data=gts)
+    ext = EVAL_DIR / "disps.npy"
+    np.save(ext, preds[1, False])
+    before = os.environ.get("SFMNEXT_SPLITS")
+    os.environ["SFMNEXT_SPLITS"] = str(EVAL_DIR / "splits")
+    try:
+        row = evaluation.evaluate(dataclasses.replace(opt, ext_disp_to_eval=str(ext),
+                                                      save_pred_disps=True))
+        t0 = time.perf_counter()
+        direct = evaluation.evaluate_predictions(opt, preds[1, False], gts, "eigen")
+        metrics_ms = (time.perf_counter() - t0) * 1e3 / EVAL_IMAGES
+        t0 = time.perf_counter()
+        evaluation.evaluate(dataclasses.replace(opt, ext_disp_to_eval=str(ext),
+                                                eval_split="benchmark"))
+        export_ms = (time.perf_counter() - t0) * 1e3 / EVAL_IMAGES
+    finally:
+        if before is None:
+            os.environ.pop("SFMNEXT_SPLITS")
+        else:
+            os.environ["SFMNEXT_SPLITS"] = before
+    require(row == direct, f"evaluate()'s row {row} is not evaluate_predictions' {direct}")
+    require(all(np.isfinite(row[k]) for k in evaluation.METRIC_KEYS), f"a non-finite metric {row}")
+    saved = np.load(EVAL_DIR / "out" / "disps_eigen_split.npy")
+    require(np.array_equal(saved, preds[1, False]), "--save_pred_disps saved other predictions")
+    pngs = sorted((EVAL_DIR / "out" / "benchmark_predictions").glob("*.png"))
+    require(len(pngs) == EVAL_IMAGES, f"{len(pngs)} benchmark PNG files, not {EVAL_IMAGES}")
+    made = counts()
+    require(not any(made.values()), f"the float32 evaluation launched kernels: {made}")
+    print(f"[eval] evaluate() on the batch-1 predictions against {EVAL_IMAGES} synthetic "
+          f"{EVAL_GT_HW[0]}x{EVAL_GT_HW[1]} maps: "
+          f"{ {k: round(float(v), 4) for k, v in row.items()} }; {len(pngs)} benchmark PNGs; "
+          f"launches {made}", flush=True)
+    print(f"[eval] host, an image: resize to {EVAL_GT_HW[0]}x{EVAL_GT_HW[1]} and metrics "
+          f"{metrics_ms:.2f} ms, benchmark export (352x1216 resize, 16-bit PNG) {export_ms:.2f} "
+          f"ms; phase wall {time.perf_counter() - t_phase:.3f} s; {smi}", flush=True)
+    return made
+
+
 def host_ms(fn, runs=3):
     """Median host time of fn() to a synchronize, ms."""
     times = []
@@ -1487,6 +1650,7 @@ def main() -> int:
     paths["avg"] = drive_avg_step(dev)
     paths["indoor"] = drive_indoor(dev, profile)
     paths["trainer"] = drive_trainer(dev, smi, bare_step)
+    paths["eval"] = drive_eval(dev, smi, profile)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "sfmnext_tpu"))
     require(not imported, f"JAX or the JAX package was imported: {imported}")

@@ -13,7 +13,11 @@ Ported so far:
   * the trainer surface (``training/trainer.py``, ``train.py``,
     ``train_indoor.py``: the epoch loop, validation, depth metrics,
     logging, checkpoints and resume) and the synthetic-convergence gate
-    (``tools/synthetic_convergence.py``).
+    (``tools/synthetic_convergence.py``);
+  * the datasets (``data/``: KITTI, NYU, MannequinChallenge, Cityscapes)
+    and the evaluation (``evaluation.py``, ``evaluate_depth_config.py``,
+    ``export_gt_depth.py``, ``tools/evaluate_depth_cityscapes_config.py``),
+    float32 as in the JAX package, so it runs none of the kernels below.
 Their TPU kernels run as hand-written Hopper kernels (``csrc/*.cu``,
 wrapped by ``ops/*_kernel.py``), forward and backward: the SQL decoder's
 two fused ops, the warp, the SSIM loss and the ColorJitter.
@@ -27,6 +31,5 @@ Conventions:
   * weights initialise from a ``torch.Generator`` seeded from ``opt.seed``;
   * the package imports ``torch`` and never ``jax``, and nothing of the
     JAX package ``sfmnext_tpu``: it keeps its own copies of what it needs
-    from there (``config.py``, ``utils/torch_export.py``,
-    ``data/synthetic.py``, ``data/loader.py``).
+    from there (``config.py``, ``utils/torch_export.py``, ``data/*``).
 """

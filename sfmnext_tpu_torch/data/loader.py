@@ -7,6 +7,12 @@ items (PIL releases the GIL for decode/resize), a collator stacks them,
 and a bounded queue keeps batches ready so the card never waits on the
 host. Augmentation runs on device (data/augment.py), so host work per
 item is decode + one LANCZOS resize.
+
+Unlike the JAX copy, items reach the batches in the order of their
+indices whatever the number of workers, as the reference's DataLoader
+delivers them (evaluation pairs the i-th prediction with the i-th
+ground-truth map), and an exception the dataset raises is raised again
+by the iteration instead of ending the epoch early.
 """
 
 from __future__ import annotations
@@ -70,8 +76,12 @@ class PrefetchLoader:
                 if not self.infinite:
                     return
 
-        index_iter = iter(index_stream())
-        index_lock = threading.Lock()
+        draws = enumerate(index_stream())  # (position in the stream, index)
+        draw_lock = threading.Lock()
+        # the position whose item goes into item_q next: workers decode in
+        # parallel and hand their items over in stream order
+        turn = threading.Condition()
+        next_pos = [0]
 
         n_batches = len(self) if not self.infinite else None
 
@@ -85,16 +95,27 @@ class PrefetchLoader:
                     continue
             return False
 
-        # ordered slots keep batch composition deterministic enough for
-        # testing while letting workers run ahead
         def worker():
             while not stop.is_set():
-                with index_lock:
+                with draw_lock:
                     try:
-                        i = next(index_iter)
+                        pos, i = next(draws)
                     except StopIteration:
                         break
-                if not put_checked(item_q, self.dataset[i]):
+                try:
+                    item = self.dataset[i]
+                except Exception as e:  # raised again in the consuming thread
+                    item = _Failure(e)
+                with turn:
+                    while next_pos[0] != pos:
+                        if stop.is_set():
+                            return
+                        turn.wait(timeout=1)
+                delivered = put_checked(item_q, item)
+                with turn:
+                    next_pos[0] += 1
+                    turn.notify_all()
+                if not delivered or isinstance(item, _Failure):
                     break
 
         workers = [
@@ -108,7 +129,7 @@ class PrefetchLoader:
                 items = []
                 while len(items) < self.batch_size:
                     try:
-                        items.append(item_q.get(timeout=5))
+                        item = item_q.get(timeout=0.1)
                     except queue.Empty:
                         if stop.is_set():
                             return
@@ -124,6 +145,10 @@ class PrefetchLoader:
                         # slow storage: keep waiting — never silently
                         # truncate the epoch
                         continue
+                    if isinstance(item, _Failure):
+                        put_checked(batch_q, item)
+                        return
+                    items.append(item)
                 if not put_checked(batch_q, _collate(items)):
                     return
                 produced += 1
@@ -139,6 +164,15 @@ class PrefetchLoader:
                 batch = batch_q.get()
                 if batch is None:
                     break
+                if isinstance(batch, _Failure):
+                    raise batch.error
                 yield batch
         finally:
             stop.set()
+
+
+class _Failure:
+    """An exception a worker caught, on its way to the consuming thread."""
+
+    def __init__(self, error: Exception):
+        self.error = error

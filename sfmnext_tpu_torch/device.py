@@ -12,6 +12,12 @@ def cuda_device(index: int = 0) -> torch.device:
     return torch.device("cuda", index)
 
 
+def opt_device(opt) -> torch.device:
+    """The device an entry point runs on: the CPU with ``--no_cuda``,
+    else the CUDA card (``cuda_device``: no fallback to the CPU)."""
+    return torch.device("cpu") if opt.no_cuda else cuda_device()
+
+
 def disable_tf32() -> None:
     """Run float32 matmuls and convolutions in full float32.
 

@@ -1,6 +1,6 @@
 """Camera geometry. Counterpart of ``sfmnext_tpu/ops/geometry.py``
-(``rot_from_axisangle`` .. ``project_depth`` and ``euler_to_mat``,
-reference layers.py:75-258, 422-457).
+(``disp_to_depth``, ``rot_from_axisangle`` .. ``project_depth`` and
+``euler_to_mat``, reference layers.py:51-258, 422-457).
 
 Pixel-coordinate math stays float32: the JAX package asks for
 ``Precision.HIGHEST`` on every product here, and the port's entry points
@@ -23,6 +23,16 @@ def _transform(mat: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     ``chip_smoke.py --profile``). Here the backward is PyTorch's
     elementwise product and reduction instead."""
     return (mat[..., None] * points[:, None]).sum(dim=2)
+
+
+def disp_to_depth(disp, min_depth: float, max_depth: float):
+    """Sigmoid disparity -> (scaled_disp, depth), numpy or torch.
+    Reference layers.py:51-60."""
+    min_disp = 1.0 / max_depth
+    max_disp = 1.0 / min_depth
+    scaled_disp = min_disp + (max_disp - min_disp) * disp
+    depth = 1.0 / scaled_disp
+    return scaled_disp, depth
 
 
 def rot_from_axisangle(vec: torch.Tensor) -> torch.Tensor:

@@ -23,10 +23,9 @@ import os
 import sys
 
 import numpy as np
-import torch
 
 from sfmnext_tpu_torch.config import parse_options
-from sfmnext_tpu_torch.device import cuda_device, disable_tf32
+from sfmnext_tpu_torch.device import disable_tf32, opt_device
 from sfmnext_tpu_torch.sql_depth import SQLdepth
 
 
@@ -80,7 +79,7 @@ def main(argv=None) -> None:
         opt = dataclasses.replace(
             opt, load_pretrained_model=True, load_pt_folder=opt.load_weights_folder
         )
-    device = torch.device("cpu") if opt.no_cuda else cuda_device()
+    device = opt_device(opt)
     disable_tf32()
     test_simple(opt, device)
 

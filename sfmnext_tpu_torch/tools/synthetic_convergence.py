@@ -42,7 +42,7 @@ import torch
 
 from sfmnext_tpu_torch.config import Options
 from sfmnext_tpu_torch.data.synthetic import SyntheticDriveDataset
-from sfmnext_tpu_torch.device import cuda_device, disable_tf32
+from sfmnext_tpu_torch.device import disable_tf32, opt_device
 from sfmnext_tpu_torch.ops.warp import inverse_rotation_warp
 from sfmnext_tpu_torch.training.builder import build_models
 from sfmnext_tpu_torch.training.pipeline import train_depth_metrics
@@ -95,7 +95,7 @@ def main(argv=None):
     p.add_argument("--no_cuda", action="store_true", help="train on the CPU")
     args = p.parse_args(argv)
     steps, h, w, bs = args.steps, args.height, args.width, 8
-    dev = torch.device("cpu") if args.no_cuda else cuda_device()
+    dev = opt_device(args)
     disable_tf32()
 
     overrides = json.loads(os.environ.get("SFMNEXT_OPT_OVERRIDES", "{}"))

@@ -4,9 +4,9 @@
     python -m sfmnext_tpu_torch.train args_files/<config>.txt [--no_cuda]
 
 A bare .txt positional is expanded as an @argfile. It trains on the CUDA
-card, or on the CPU with --no_cuda. The port has no dataset loaders yet
-(ROADMAP queue 1, item 4), so from the command line it stops at the
-dataset; ``Trainer(opt, train_loader, val_loader)`` takes batches directly.
+card, or on the CPU with --no_cuda, on the --dataset under --data_path and
+the split's file lists (``training/trainer.make_dataset``);
+``Trainer(opt, train_loader, val_loader)`` takes batches directly.
 """
 
 import sys

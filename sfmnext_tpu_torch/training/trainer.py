@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sfmnext_tpu_torch.device import cuda_device, disable_tf32
+from sfmnext_tpu_torch.device import disable_tf32, opt_device
 from sfmnext_tpu_torch.training.builder import build_models
 from sfmnext_tpu_torch.training.pipeline import train_depth_metrics
 from sfmnext_tpu_torch.training.step import make_eval_step, make_optimizer, make_train_step
@@ -44,17 +44,29 @@ def find_splits_dir() -> str:
 
 
 def make_dataset(opt, filenames, is_train: bool):
-    """The dataset of ``opt.dataset``. The port has no KITTI / NYU /
-    Cityscapes / Mannequin loaders yet: pass ``train_loader`` and
-    ``val_loader`` to the Trainer instead."""
-    raise NotImplementedError(
-        f"dataset {opt.dataset!r}: the port's dataset loaders are ROADMAP queue 1, item 4; "
-        "pass train_loader / val_loader (e.g. data/synthetic.py batches)")
+    """The dataset of ``opt.dataset`` over ``filenames`` at the training
+    resolution and ``opt.all_frame_ids`` (the JAX trainer's switch,
+    reference trainer.py:144-148, trainer_indoor.py for NYU and
+    MannequinChallenge)."""
+    from sfmnext_tpu_torch.data import cityscapes, kitti, mannequin, nyu
 
-
-def _read_lines(path: str):
-    with open(path) as f:
-        return f.read().splitlines()
+    datasets = {
+        "kitti": kitti.KITTIRAWDataset,
+        "kitti_odom": kitti.KITTIOdomDataset,
+        "kitti_depth": kitti.KITTIDepthDataset,
+        "cityscapes_preprocessed": cityscapes.CityscapesPreprocessedDataset,
+        "nyu_raw": nyu.NYURawDataset,
+        "mc_dataset": mannequin.MCDataset,
+        "mc_mini_dataset": mannequin.MCDataset,
+    }
+    if opt.dataset not in datasets:
+        raise ValueError(f"dataset {opt.dataset!r}: one of {sorted(datasets)}")
+    cls = datasets[opt.dataset]
+    extra = {}
+    if cls is mannequin.MCDataset:  # reference trainer_indoor.py reads --intrinsics_file_path
+        extra["intrinsics_file"] = opt.intrinsics_file_path or None
+    return cls(opt.data_path, filenames, opt.height, opt.width, opt.all_frame_ids,
+               is_train=is_train, img_ext=opt.img_ext, **extra)
 
 
 def seed_step(generator: torch.Generator, seed: int, step: int) -> torch.Generator:
@@ -90,7 +102,7 @@ class Trainer:
     def __init__(self, opt, train_loader=None, val_loader=None):
         self.opt = opt.validate()
         disable_tf32()
-        self.device = torch.device("cpu") if opt.no_cuda else cuda_device()
+        self.device = opt_device(opt)
         if opt.mesh_shape is not None and opt.mesh_shape > 1:
             raise NotImplementedError(
                 f"mesh_shape {opt.mesh_shape}: the port trains on one device; data parallel "
@@ -112,13 +124,14 @@ class Trainer:
         # data ------------------------------------------------------------
         if train_loader is None:
             from sfmnext_tpu_torch.data.loader import PrefetchLoader
+            from sfmnext_tpu_torch.data.mono_dataset import read_lines
 
             fpath = os.path.join(find_splits_dir(), opt.split, "{}_files.txt")
             train_loader = PrefetchLoader(
-                make_dataset(opt, _read_lines(fpath.format("train")), True),
+                make_dataset(opt, read_lines(fpath.format("train")), True),
                 opt.batch_size, shuffle=True, num_workers=opt.num_workers, seed=opt.seed)
             val_loader = PrefetchLoader(
-                make_dataset(opt, _read_lines(fpath.format("val")), False),
+                make_dataset(opt, read_lines(fpath.format("val")), False),
                 opt.batch_size, shuffle=True, num_workers=max(1, opt.num_workers // 2),
                 seed=opt.seed + 1, infinite=True)
         self.train_loader = train_loader

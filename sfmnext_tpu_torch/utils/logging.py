@@ -32,19 +32,25 @@ def sec_to_hm_str(t: float) -> str:
     return f"{h:02d}h{m:02d}m{s:02d}s"
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """An 8-bit RGB PNG of ``rgb`` [H,W,3] uint8: one IDAT chunk of
-    filter-0 rows."""
-    h, w, c = rgb.shape
-    if c != 3 or rgb.dtype != np.uint8:
-        raise ValueError(f"write_png takes [H,W,3] uint8, got {rgb.shape} {rgb.dtype}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+def write_png(path: str, image: np.ndarray) -> None:
+    """A PNG of ``image``: [H,W,3] uint8 as 8-bit RGB, or [H,W] uint16 as
+    16-bit grayscale (big-endian samples); one IDAT chunk of filter-0 rows."""
+    if image.ndim == 3 and image.shape[2] == 3 and image.dtype == np.uint8:
+        h, w, _ = image.shape
+        depth, color_type, rows = 8, 2, image.reshape(h, w * 3)
+    elif image.ndim == 2 and image.dtype == np.uint16:
+        h, w = image.shape
+        depth, color_type, rows = 16, 0, image.astype(">u2").view(np.uint8).reshape(h, w * 2)
+    else:
+        raise ValueError(f"write_png takes [H,W,3] uint8 or [H,W] uint16, got "
+                         f"{image.shape} {image.dtype}")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB, no interlace
+    header = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)  # no interlace
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))

@@ -207,8 +207,11 @@ def test_warm_start_pose_and_adam(unbroken, tmp_path):
 
 
 def test_no_loader_and_no_dataset_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        Trainer(_opt(tmp_path))
+    """Without loaders the Trainer builds the ``--dataset``'s loaders
+    (``tests/test_torch_data.py`` trains on files); a name the dataset
+    switch does not know raises, as data parallel does."""
+    with pytest.raises(ValueError, match="dataset 'nope'"):
+        Trainer(_opt(tmp_path, "--dataset", "nope"))
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         Trainer(_opt(tmp_path, "--mesh_shape", "2"), [], [])
 
