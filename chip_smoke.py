@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SQLdepth inference path, its flagship
 self-supervised training step, its --avg_reprojection variant, the
-indoor training step, the Trainer and the evaluation on one CUDA card.
+indoor training step, the Trainer, the evaluation and metric finetuning
+with its evaluation on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -104,13 +105,33 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      eval images/s, the host's resize-and-metrics ms an image and the
      phase's wall time; with --profile, torch.profiler breakdowns of the
      float32 forward at batch 8 and 16;
- 10. one JSON line of kernel results (launches per path, the Trainer's
-     as launches_trainer, the evaluation's as launches_eval), then the
-     result line.
+ 10. finetune: FinetuneTrainer at the flagship argfile and
+     args_files/hisfog/ft/inc_kitti.txt (batch 16, 320x1024, bf16 autocast,
+     AdamW lr 1e-4 wd 0.01, OneCycle, clip 0.1, max depth 80; seeded
+     weights; a warm-up trainer first) on synthetic items in DepthDataset's
+     layout (metric GT on 15% of the pixels, as KITTI's annotated maps; the
+     card's machine has no PIL to decode files): one epoch of 6 steps and a
+     batch without valid depth, which it skips, validate on 8 images at
+     batch 1 (the flip-TTA in bf16), the best and latest checkpoints under
+     runs/chip_smoke_finetune/, then evaluate_metric_depth.evaluate on the
+     best folder over the same 8 images without a crop, its dict within
+     1e-6 of validate's; a finite SILog, parameters and encoder BatchNorm
+     statistics that move, the update count 6 in the schedule and in AdamW
+     and the schedule's rate at 6, exactly the launches of 6 steps (each
+     SQL kernel once a step) and of 8 images in validate and again in the
+     CLI (the SQL forwards twice an image, no backward); one kernel step
+     against one plain step (dropout off) within phase 6's limits; the
+     median step, images/s, peak memory, validate images/s and the
+     checkpoint writes; with --profile, a torch.profiler breakdown of two
+     finetune steps;
+ 11. one JSON line of kernel results (launches per path, the Trainer's
+     as launches_trainer, the evaluation's as launches_eval, finetuning's
+     as launches_finetune), then the result line.
 Without a visible CUDA card it exits 1 and prints no result. It imports
 nothing of JAX and nothing of the JAX package (sfmnext_tpu).
 """
 
+import argparse
 import ctypes
 import dataclasses
 import json
@@ -127,13 +148,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sfmnext_tpu_torch import evaluation
+from sfmnext_tpu_torch import evaluate_metric_depth, evaluation, finetune_metric_depth
 from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.data import augment
 from sfmnext_tpu_torch.data.kitti import KITTIRAWDataset
 from sfmnext_tpu_torch.data.loader import PrefetchLoader
 from sfmnext_tpu_torch.data.synthetic import SyntheticDriveDataset, make_batch
 from sfmnext_tpu_torch.device import cuda_device, disable_tf32
+from sfmnext_tpu_torch.finetune import FinetuneTrainer
+from sfmnext_tpu_torch.finetune.trainer import finetune_loss
 from sfmnext_tpu_torch.ops import (_build, geometry, jitter_kernel, sql_attention, sql_kernel,
                                    ssim_kernel, warp, warp_kernel)
 from sfmnext_tpu_torch.sql_depth import SQLdepth
@@ -256,6 +279,20 @@ EVAL_GT_HW = (375, 1242)
 EVAL_RUNS = ((1, False), (1, True), (8, False), (8, True), (16, False))  # batch, post_process
 EVAL_BATCH_TOL = 1e-5  # batch 8 vs batch 1, of the largest depth (cuDNN may pick other kernels)
 EVAL_CPU_TOL = 1e-4  # the card vs the CPU in float32, of the largest depth
+# metric finetuning at the flagship argfile with the reference's KITTI finetune
+# argfile (batch 16, 320x1024, lr 1e-4, wd 0.01, max depth 80): one epoch of
+# 6 steps and a batch without valid depth, which the trainer skips, then
+# validation, the checkpoints and the metric-eval CLI on 8 images
+FT_ARGFILE = ROOT / "args_files" / "hisfog" / "ft" / "inc_kitti.txt"
+FT_DIR = ROOT / "runs" / "chip_smoke_finetune"
+FT_STEPS = 6
+FT_VAL_IMAGES = 8
+FT_VALID_SHARE = 0.15  # KITTI's annotated depth maps hold about 15% of the pixels
+FT_EVAL_TOL = 1e-6  # the metric-eval CLI's dict against validate's, relative
+# a finetune step: one forward and one backward of each SQL op; a validated or
+# evaluated image: the forwards of the frame and of its flip
+FT_STEP_LAUNCHES = launches(sql_summary=1, sql_depth=1, sql_summary_bwd=1, sql_depth_bwd=1)
+FT_IMAGE_LAUNCHES = launches(sql_summary=2, sql_depth=2)
 TRAIN_STEPS = 5
 B_TRAIN = 8
 HW_TRAIN = (320, 1024)
@@ -1136,12 +1173,12 @@ def drive_no_ssim_step(dev):
     require(made == NO_SSIM_LAUNCHES, f"a --no_ssim step launched {made}, not {NO_SSIM_LAUNCHES}")
 
 
-def one_step(dev, opt, batch, forward_fn, use_kernels):
+def one_step(dev, opt, batch, forward_fn, use_kernels, depth_only=False):
     """One forward and backward on seeded weights, through the kernels or
     the plain ops, dropout and tie-break noise off: (loss, {module: its
     gradient as one float32 vector})."""
     o = dataclasses.replace(opt, use_pallas=use_kernels)
-    models = build_models(o, dev, train=True)
+    models = build_models(o, dev, train=True, depth_only=depth_only)
     for m in models.depth.modules():
         if isinstance(m, (torch.nn.Dropout, torch.nn.MultiheadAttention)):
             m.eval()
@@ -1158,12 +1195,12 @@ def rel_errors(a, b):
             {name: float((a[1][name] - b[1][name]).norm() / b[1][name].norm()) for name in b[1]})
 
 
-def kernel_vs_plain(dev, opt, batch, forward_fn):
+def kernel_vs_plain(dev, opt, batch, forward_fn, depth_only=False):
     """One kernel step against one plain step on the same weights and
     batch: (kernel loss, plain loss, the loss's relative error, each
     module's gradient error)."""
-    k = one_step(dev, opt, batch, forward_fn, True)
-    p = one_step(dev, opt, batch, forward_fn, False)
+    k = one_step(dev, opt, batch, forward_fn, True, depth_only)
+    p = one_step(dev, opt, batch, forward_fn, False, depth_only)
     return (k[0], p[0], *rel_errors(k, p))
 
 
@@ -1544,6 +1581,161 @@ def drive_eval(dev, smi, profile=False):
     return made
 
 
+class CountedLoader:
+    """The batches in order; the kernels' launches over each whole pass."""
+
+    def __init__(self, batches):
+        self.batches, self.made = batches, []
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        start = counts()
+        yield from self.batches
+        self.made.append({k: v - start[k] for k, v in counts().items()})
+
+
+def depth_items(n, hw, seed, valid=True):
+    """A batch of n items in DepthDataset's layout (its output after PIL's
+    decode, which the card's machine lacks): synthetic frames and metric GT
+    in [1, 79] m on FT_VALID_SHARE of the pixels; ``valid=False`` is the
+    dataset's item for a record without GT (zeros, has_valid_depth False)."""
+    rng = np.random.RandomState(seed)
+    if not valid:
+        return {"image": np.zeros((n, *hw, 3), np.float32),
+                "depth": np.zeros((n, *hw, 1), np.float32),
+                "focal": np.full(n, 721.5377, np.float32),
+                "has_valid_depth": np.zeros(n, bool)}
+    depth = (rng.rand(n, *hw, 1) * 78 + 1) * (rng.rand(n, *hw, 1) < FT_VALID_SHARE)
+    return {"image": synthetic_images(n, *hw, seed=seed), "depth": depth.astype(np.float32),
+            "focal": np.full(n, 721.5377, np.float32), "has_valid_depth": np.ones(n, bool)}
+
+
+def ft_forward(models, batch, opt):
+    """finetune_loss in the shape kernel_vs_plain takes."""
+    return finetune_loss(models, batch["image"], batch["depth"], max_depth=opt.max_depth), None
+
+
+def drive_finetune(dev, smi, profile=False):
+    """Phase 10: metric finetuning at the flagship argfile and inc_kitti.txt
+    (batch 16, 320x1024, bf16). Returns the kernels' launch counts over the
+    training, the validation and the metric-eval CLI."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(FT_DIR, ignore_errors=True)
+    ft_args, rest = finetune_metric_depth.parse_ft([str(ARGFILE), str(FT_ARGFILE)])
+    opt = parse_options(rest + ["--log_dir", str(FT_DIR)])
+    b, hw = ft_args.ft_batch_size, (ft_args.ft_input_height, ft_args.ft_input_width)
+    require((b, *hw, ft_args.ft_lr, ft_args.ft_wd, opt.max_depth) == (16, *HW_TRAIN, 1e-4, 0.01, 80),
+            f"unexpected finetune config {b}x{hw}, lr {ft_args.ft_lr}, wd {ft_args.ft_wd}")
+    batches = [depth_items(b, hw, seed) for seed in (11, 12)]
+    loader = [batches[0], batches[1], batches[0], depth_items(b, hw, 0, valid=False),
+              batches[1], batches[0], batches[1]]  # 6 steps and a skipped batch
+    val_items = depth_items(FT_VAL_IMAGES, hw, 13)
+    val_batches = [{k: v[i:i + 1] for k, v in val_items.items()} for i in range(FT_VAL_IMAGES)]
+
+    def trainer(loader, val_loader=None):
+        return FinetuneTrainer(opt, loader, val_loader, lr=ft_args.ft_lr,
+                               weight_decay=ft_args.ft_wd, epochs=1)
+
+    warm = trainer(loader[:1])  # warm-up: cuDNN plans, the allocator, the kernels
+    warm.train(log_every=1)
+    del warm
+    torch.cuda.empty_cache()
+
+    val_loader = CountedLoader(val_batches)
+    tr = trainer(loader, val_loader)
+    enc = tr.models.encoder.encoder.encoder
+    watched = {"encoder.conv1": enc.conv1.weight, "depth.conv3x3": tr.models.depth.conv3x3.weight,
+               "depth.prob": tr.models.depth.convert_to_prob[0].weight}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    bn_before = (enc.bn1.running_mean.clone(), enc.bn1.running_var.clone())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    val = tr.train(log_every=1)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    made = counts()
+    val_made = val_loader.made[0]
+    step_made = {k: made[k] - val_made[k] for k in made}
+    want_steps = {k: FT_STEPS * v for k, v in FT_STEP_LAUNCHES.items()}
+    want_images = {k: FT_VAL_IMAGES * v for k, v in FT_IMAGE_LAUNCHES.items()}
+    require(len(val_loader.made) == 1, f"validated {len(val_loader.made)} times, not once")
+    require(step_made == want_steps, f"{FT_STEPS} finetune steps launched {step_made}, "
+                                     f"not {want_steps}")
+    require(val_made == want_images, f"validate launched {val_made}, not {want_images}")
+    require(len(tr.losses) == FT_STEPS and all(np.isfinite(tr.losses)),
+            f"finetune losses {tr.losses}")
+    moved = {k: float((v.detach() - before[k]).abs().max()) for k, v in watched.items()}
+    require(all(m > 0 for m in moved.values()), f"parameters did not move: {moved}")
+    bn_moved = (float((enc.bn1.running_mean - bn_before[0]).abs().max()),
+                float((enc.bn1.running_var - bn_before[1]).abs().max()))
+    require(all(m > 0 for m in bn_moved), f"BatchNorm statistics did not move: {bn_moved}")
+    adam_steps = {float(st["step"]) for st in tr.optimizer.state.values()}
+    lr = tr.optimizer.param_groups[0]["lr"]
+    require(tr.step == tr.scheduler.last_epoch == FT_STEPS and adam_steps == {float(FT_STEPS)},
+            f"update count {tr.step}, schedule {tr.scheduler.last_epoch}, AdamW {adam_steps}")
+    require(lr == tr.schedule(FT_STEPS), f"lr {lr}, not the schedule's {tr.schedule(FT_STEPS)}")
+    require(all(np.isfinite(v) for v in val.values()), f"a non-finite metric {val}")
+    best = FT_DIR / opt.model_name / "finetune" / "weights_best"
+    require(all((best.parent / f"weights_{tag}" / f"{name}.pth").exists()
+                for tag in ("best", "latest") for name in ("encoder", "depth", "adam")),
+            "the best and latest checkpoints are incomplete")
+    step_ms = statistics.median(tr.timings["step"]) * 1e3
+    val_s = tr.timings["val"][0]
+    print(f"[finetune] {opt.backbone}-{opt.num_layers} {hw[0]}x{hw[1]} batch {b} "
+          f"{opt.compute_dtype}, AdamW lr {ft_args.ft_lr} wd {ft_args.ft_wd}, OneCycle over "
+          f"{len(loader)} batches (clamped to 10): losses {[round(x, 6) for x in tr.losses]}; "
+          f"the batch without valid depth skipped; update count {tr.step}, lr {lr:.6e} = the "
+          f"schedule's; launches per step { {k: v for k, v in FT_STEP_LAUNCHES.items() if v} }",
+          flush=True)
+    print(f"[finetune] parameters moved by up to {moved}; encoder bn1 running mean/var moved by "
+          f"up to {bn_moved}", flush=True)
+    print(f"[finetune] median step {step_ms:.2f} ms over {FT_STEPS} steps "
+          f"({[round(x * 1e3, 2) for x in tr.timings['step']]} ms, upload to the loss's host "
+          f"read), {b / step_ms * 1e3:.2f} images/s, peak memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); {smi}", flush=True)
+    print(f"[finetune] validate: {FT_VAL_IMAGES} images at batch 1 with the flip-TTA in "
+          f"{opt.compute_dtype}, {val_s:.3f} s, {FT_VAL_IMAGES / val_s:.2f} images/s (upload to "
+          f"the host metrics); launches { {k: v for k, v in val_made.items() if v} }; "
+          f"{ {k: round(v, 4) for k, v in val.items()} }; {smi}", flush=True)
+    print(f"[finetune] checkpoint writes (best, latest) "
+          f"{[round(x, 3) for x in tr.timings['save']]} s; train() wall {wall:.3f} s; {smi}",
+          flush=True)
+    batch = {k: torch.from_numpy(batches[0][k]).to(dev) for k in ("image", "depth")}
+    if profile:  # two more steps of the trained state, after every check above
+        profile_steps(dev, lambda batch, _: tr.step_fn(batch), batch, None,
+                      what="finetune steps", trace="finetune_step_trace.json")
+    del tr, val_loader
+    torch.cuda.empty_cache()
+
+    # the metric-eval CLI's evaluate() on the saved best folder, same 8 images, no crop
+    eval_args = argparse.Namespace(**{**vars(ft_args), "checkpoint_path": str(best),
+                                      "garg_crop": False, "eigen_crop": False})
+    start = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = evaluate_metric_depth.evaluate(opt, eval_args, val_batches)
+    eval_s = time.perf_counter() - t0
+    eval_made = {k: v - start[k] for k, v in counts().items()}
+    require(eval_made == want_images, f"evaluate launched {eval_made}, not {want_images}")
+    diff = {k: abs(got[k] - val[k]) / max(1.0, abs(val[k])) for k in val}
+    print(f"[finetune] evaluate_metric_depth on weights_best: largest difference from validate "
+          f"{max(diff.values()):.3e} (limit {FT_EVAL_TOL}, relative above 1); {eval_s:.3f} s with "
+          f"the model's build and load; launches { {k: v for k, v in eval_made.items() if v} }",
+          flush=True)
+    require(sorted(got) == sorted(val) and max(diff.values()) <= FT_EVAL_TOL,
+            f"evaluate's {got} is not validate's {val}")
+
+    check_step_agreement("finetune", "kernel step vs plain step",
+                         *kernel_vs_plain(dev, opt, batch, ft_forward, depth_only=True),
+                         STEP_LOSS_RTOL, {k: STEP_GRAD_RTOL[k] for k in ("encoder", "depth")})
+    print(f"[finetune] phase wall {time.perf_counter() - t_phase:.3f} s; {smi}", flush=True)
+    return {k: made[k] + eval_made[k] for k in made}
+
+
 def host_ms(fn, runs=3):
     """Median host time of fn() to a synchronize, ms."""
     times = []
@@ -1651,6 +1843,7 @@ def main() -> int:
     paths["indoor"] = drive_indoor(dev, profile)
     paths["trainer"] = drive_trainer(dev, smi, bare_step)
     paths["eval"] = drive_eval(dev, smi, profile)
+    paths["finetune"] = drive_finetune(dev, smi, profile)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "sfmnext_tpu"))
     require(not imported, f"JAX or the JAX package was imported: {imported}")

@@ -71,14 +71,7 @@ def load_eval_variables(opt, device):
     if folder is None:
         print("WARNING: no --load_weights_folder; evaluating random init")
         return models
-    if not os.path.exists(os.path.join(folder, "encoder.pth")):
-        raise FileNotFoundError(
-            f"{folder} holds no encoder.pth: the port reads reference-layout .pth "
-            "folders; convert an orbax checkpoint with the JAX package's "
-            "tools/ckpt_to_pth.py first")
-    ckpt.load_module(folder, "encoder", models.encoder)
-    if os.path.exists(os.path.join(folder, "depth.pth")):
-        ckpt.load_module(folder, "depth", models.depth)
+    ckpt.load_encoder_depth(folder, models)
     return models
 
 

@@ -100,3 +100,51 @@ def edge_aware_smoothness(disp, img, compute_dtype=None):
     sx = (grad_disp_x * torch.exp(-grad_img_x)).float()
     sy = (grad_disp_y * torch.exp(-grad_img_y)).float()
     return sx.mean() + sy.mean()
+
+
+def silog_loss(pred, target, mask=None, variance_focus: float = 0.85):
+    """Scale-invariant log loss 10*sqrt(var(g) + 0.15*mean(g)^2) of
+    g = log(pred) - log(target) (reference finetune/loss.py:24-42).
+
+    With a boolean ``mask`` the statistics are the masked ones, weighted by
+    the mask so every shape stays static, as the JAX package computes them;
+    masked-out entries take log(1) = 0."""
+    if mask is not None:
+        m = mask.to(pred.dtype)
+        n = m.sum() + 1e-7
+        one = torch.ones((), dtype=pred.dtype, device=pred.device)
+        g = (torch.log(torch.where(mask, pred, one)) - torch.log(torch.where(mask, target, one))) * m
+        mean_g = g.sum() / n
+        var_g = (g * g).sum() / n - mean_g * mean_g
+    else:
+        g = torch.log(pred) - torch.log(target)
+        mean_g = g.mean()
+        var_g = g.var(unbiased=False)
+    return 10.0 * torch.sqrt(var_g + (1.0 - variance_focus) * mean_g * mean_g)
+
+
+def l2_loss(pred, target, mask=None):
+    """Mean squared error, masked when ``mask`` is given (reference
+    finetune/loss.py:7-21)."""
+    if mask is not None:
+        m = mask.to(pred.dtype)
+        return (((pred - target) ** 2) * m).sum() / m.sum().clamp(min=1.0)
+    return ((pred - target) ** 2).mean()
+
+
+def bins_chamfer_loss(bin_edges, target_depth, valid_mask=None):
+    """Symmetric chamfer distance between the bin centres [B,D] of
+    ``bin_edges`` [B,D+1] and the valid target depths of each sample
+    (reference finetune/loss.py:45-63, AdaBins; the reference's pytorch3d
+    call written out, as the JAX package does). Without ``valid_mask`` a
+    depth is valid at >= 1e-3."""
+    centers = 0.5 * (bin_edges[:, 1:] + bin_edges[:, :-1])
+    b = centers.shape[0]
+    tgt = target_depth.reshape(b, -1)
+    valid = tgt >= 1e-3 if valid_mask is None else valid_mask.reshape(b, -1)
+    m = valid.to(centers.dtype)
+    d2 = (centers[:, :, None] - tgt[:, None, :]) ** 2  # [B,D,N]
+    big = torch.full((), 1e9, dtype=d2.dtype, device=d2.device)
+    c2t = torch.where(valid[:, None, :], d2, big).amin(dim=2).mean(dim=1)
+    t2c = (d2.amin(dim=1) * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
+    return (c2t + t2c).mean()

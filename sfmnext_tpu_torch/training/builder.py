@@ -49,11 +49,13 @@ def compute_dtype(opt) -> torch.dtype:
     return dtypes[opt.compute_dtype]
 
 
-def build_models(opt, device, train: bool = False) -> ModelBundle:
+def build_models(opt, device, train: bool = False, depth_only: bool = False) -> ModelBundle:
     """The bundle on ``device``, initialised from a ``torch.Generator``
     seeded with ``opt.seed`` in the JAX package's order: encoder, depth,
     pose, rectify. ``opt.use_pallas`` routes the SQL decoder through its
-    kernels."""
+    kernels. ``depth_only`` leaves out the pose and rectify networks
+    (metric finetuning trains the encoder and depth decoder alone); the
+    encoder and decoder weights are those of the full bundle."""
     if opt.backbone != "resnet":
         raise NotImplementedError(
             f"backbone {opt.backbone!r}: the port builds 'resnet' only")
@@ -69,7 +71,7 @@ def build_models(opt, device, train: bool = False) -> ModelBundle:
                 dtype=dtype, use_kernels=getattr(opt, "use_pallas", True),
             ),
         }
-        if train:
+        if train and not depth_only:
             if opt.pose_model_type != "posecnn" or opt.use_stereo:
                 raise NotImplementedError(
                     f"pose_model_type {opt.pose_model_type!r}"

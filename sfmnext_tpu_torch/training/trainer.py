@@ -188,9 +188,7 @@ class Trainer:
     def _warm_start(self, folder):
         """Pretrained encoder and depth from ``encoder.pth`` / ``depth.pth``
         (reference trainer.py:66-90)."""
-        ckpt.load_module(folder, "encoder", self.models.encoder)
-        if os.path.exists(os.path.join(folder, "depth.pth")):
-            ckpt.load_module(folder, "depth", self.models.depth)
+        ckpt.load_encoder_depth(folder, self.models)
         print(f"-> warm-started encoder/depth from {folder}", flush=True)
 
     def _load_named(self, name, folder, flag):

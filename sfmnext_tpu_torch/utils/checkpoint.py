@@ -27,7 +27,8 @@ NON_TENSOR_KEYS = ("height", "width", "use_stereo")
 
 def save_checkpoint(folder: str, models, opt, optimizer, scheduler, accumulation,
                     step: int) -> None:
-    """Write the bundle's modules and the training state into ``folder``."""
+    """Write the bundle's modules and the training state into ``folder``
+    (``accumulation`` None: a run without gradient accumulation)."""
     parent, name = os.path.split(os.path.abspath(folder))
     tmp = os.path.join(parent, f".{name}.partial")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -41,7 +42,7 @@ def save_checkpoint(folder: str, models, opt, optimizer, scheduler, accumulation
         "optimizer": optimizer.state_dict(),
         "scheduler": scheduler.state_dict(),
         "step": int(step),
-        "accumulation": accumulation.state_dict(),
+        "accumulation": None if accumulation is None else accumulation.state_dict(),
     }, os.path.join(tmp, "adam.pth"))
     shutil.rmtree(folder, ignore_errors=True)
     os.replace(tmp, folder)
@@ -53,6 +54,20 @@ def load_module(folder: str, name: str, module) -> None:
     sd = torch.load(os.path.join(folder, f"{name}.pth"), map_location="cpu", weights_only=True)
     sd = {k.removeprefix("module."): v for k, v in sd.items() if k not in NON_TENSOR_KEYS}
     module.load_state_dict(sd, strict=True)
+
+
+def load_encoder_depth(folder: str, models) -> None:
+    """A reference-layout folder's ``encoder.pth`` and, if present,
+    ``depth.pth`` into the bundle (reference evaluate_depth_config.py:92-117,
+    trainer.py:66-90). A folder without ``encoder.pth`` (an orbax checkpoint
+    of the JAX package) raises."""
+    if not os.path.exists(os.path.join(folder, "encoder.pth")):
+        raise FileNotFoundError(
+            f"{folder} holds no encoder.pth: the port reads reference-layout .pth folders; "
+            "convert an orbax checkpoint with the JAX package's tools/ckpt_to_pth.py first")
+    load_module(folder, "encoder", models.encoder)
+    if os.path.exists(os.path.join(folder, "depth.pth")):
+        load_module(folder, "depth", models.depth)
 
 
 def load_modules(folder: str, models, names: Iterable[str]) -> None:

@@ -16,6 +16,8 @@ import optax
 import torch
 
 from sfmnext_tpu_torch.training.step import Accumulation
+from test_torch_models import _one_thread  # noqa: F401
+
 
 LR = 1e-2
 EVERY = 2

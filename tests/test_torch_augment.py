@@ -27,6 +27,8 @@ from sfmnext_tpu.data import augment as jax_augment
 from sfmnext_tpu.ops.pallas import jitter_kernel as jax_jitter_kernel
 from sfmnext_tpu_torch.data import augment
 from sfmnext_tpu_torch.ops import jitter_kernel
+from test_torch_models import _one_thread  # noqa: F401
+
 
 B, F, H, W = 4, 2, 16, 24
 

@@ -11,23 +11,12 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 from sfmnext_tpu_torch.tools import synthetic_convergence
+from test_torch_models import _one_thread  # noqa: F401
 
 SMALL = {"num_features": 64, "model_dim": 16, "patch_size": 4, "query_nums": 16,
          "dim_out": 16, "compute_dtype": "float32"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module: the suite runs several workers
-    on a few cores, where torch's default thread pool per worker only
-    oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("mode", ["outdoor", "indoor"])

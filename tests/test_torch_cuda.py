@@ -55,15 +55,24 @@ ragged frame, frames smaller than a cluster's blocks or one block's
 threads, 65,537 frames, contrast at each position of the order, and hue
 on its sector boundaries; a sample without jitter is copied bit for bit,
 and two calls give the same bits.
+
+One metric-finetuning step at a small size (ResNet-18, 64x96, batch 4,
+bf16, sparse GT at 80x120, dropout off) launches each SQL kernel once, and
+its loss agrees with the plain route's to the flagship step's 1e-2.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
+from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.device import disable_tf32
 from sfmnext_tpu_torch.data import augment
+from sfmnext_tpu_torch.finetune import trainer as finetune
 from sfmnext_tpu_torch.ops import (jitter_kernel, sql_attention, sql_kernel, ssim_kernel, warp,
                                    warp_kernel)
+from sfmnext_tpu_torch.training.builder import build_models
 
 pytestmark = pytest.mark.cuda
 
@@ -698,3 +707,34 @@ def test_jitter_hue_at_sector_boundaries(dev):
     torch.cuda.synchronize()
     want = jitter_kernel.plain_color_jitter(color, order, factors, do_jit)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+FT_ARGS = ["--num_layers", "18", "--num_features", "64", "--model_dim", "16",
+           "--patch_size", "4", "--query_nums", "16", "--dim_out", "16",
+           "--height", "64", "--width", "96", "--max_depth", "10"]
+
+
+def test_finetune_step_launches_each_sql_kernel_once(dev):
+    gen = torch.Generator(device=dev).manual_seed(14)
+    batch = {"image": torch.rand(4, 64, 96, 3, device=dev, generator=gen),
+             "depth": (1 + 8 * torch.rand(4, 80, 120, 1, device=dev, generator=gen))
+             * (torch.rand(4, 80, 120, 1, device=dev, generator=gen) < 0.3)}
+    wrappers = (sql_kernel.sql_summary, sql_kernel.sql_depth, sql_kernel.sql_summary_bwd,
+                sql_kernel.sql_depth_bwd)
+    losses = []
+    for use_kernels in (True, False):
+        opt = dataclasses.replace(parse_options(FT_ARGS), use_pallas=use_kernels)
+        models = build_models(opt, dev, train=True, depth_only=True)
+        for m in models.depth.modules():  # dropout off
+            if isinstance(m, (torch.nn.Dropout, torch.nn.MultiheadAttention)):
+                m.eval()
+        params = [p for mod in models.modules().values() for p in mod.parameters()]
+        step = finetune.make_finetune_step(
+            models, *finetune.make_finetune_optimizer(params, 1e-4, 10), max_depth=10.0)
+        before = [fn.launches for fn in wrappers]
+        losses.append(step(batch)["loss"].item())
+        torch.cuda.synchronize()
+        made = [fn.launches - n for fn, n in zip(wrappers, before)]
+        assert made == [int(use_kernels)] * 4, made
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1]), losses

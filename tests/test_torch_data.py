@@ -39,6 +39,7 @@ from sfmnext_tpu_torch.data import kitti_utils
 from sfmnext_tpu_torch.data.loader import PrefetchLoader
 from sfmnext_tpu_torch.data.mono_dataset import pil_image
 from sfmnext_tpu_torch.training import trainer
+from test_torch_models import _one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SEQ = "2011_09_26/2011_09_26_drive_0001_sync"
@@ -46,17 +47,6 @@ N_FRAMES = 5
 IMG_HW = (40, 120)  # the raw frames; also the velodyne map's size (S_rect_02)
 HW = (32, 48)  # the datasets' resolution
 CS_FRAME = "berlin_000000_000019"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module: the suite runs several workers
-    on a few cores, where torch's default thread pool per worker only
-    oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _save_rgb(path, rng, hw):

@@ -38,22 +38,11 @@ from sfmnext_tpu_torch.training.builder import build_models
 from sfmnext_tpu_torch.training.step import (make_eval_step, make_infer_fn, make_optimizer,
                                              make_train_step)
 from sfmnext_tpu_torch.utils.jax_weights import from_jax_variables
-from test_torch_models import numpy_variables
+from test_torch_models import _one_thread, numpy_variables  # noqa: F401
 from test_torch_train_step import ARGS
 
 LOSS_RTOL = 1e-5
 DEPTH_TOL = 1e-5  # of the largest depth
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module: the suite runs several workers
-    on a few cores, where torch's default thread pool per worker only
-    oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _port_models(variables, opt):

@@ -43,7 +43,7 @@ from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.tools import evaluate_depth_cityscapes_config as cityscapes_tool
 from sfmnext_tpu_torch.utils.logging import write_png
 from test_torch_data import SEQ, write_kitti_tree
-from test_torch_models import numpy_variables
+from test_torch_models import _one_thread, numpy_variables  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = ["--num_layers", "18", "--num_features", "64", "--model_dim", "16",
@@ -51,17 +51,6 @@ SMALL = ["--num_layers", "18", "--num_features", "64", "--model_dim", "16",
          "--height", "64", "--width", "96", "--num_workers", "1"]
 METRICS = evaluation.METRIC_KEYS
 GT_SHAPES = ((96, 320), (100, 330), (90, 300))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module: the suite runs several workers
-    on a few cores, where torch's default thread pool per worker only
-    oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _load_file(name, path):

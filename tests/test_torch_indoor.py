@@ -61,7 +61,8 @@ from sfmnext_tpu_torch.training.builder import build_models
 from sfmnext_tpu_torch.training.step import Accumulation, make_optimizer, select_pipeline
 from sfmnext_tpu_torch.utils import torch_export
 from sfmnext_tpu_torch.utils.jax_weights import from_jax_variables
-from test_torch_models import numpy_variables
+from test_torch_models import _one_thread, numpy_variables  # noqa: F401
+
 
 ARGS = ["--num_layers", "18", "--num_features", "64", "--model_dim", "16",
         "--patch_size", "4", "--query_nums", "16", "--dim_out", "16",

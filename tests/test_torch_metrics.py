@@ -20,19 +20,9 @@ from sfmnext_tpu.ops import metrics as jax_metrics
 from sfmnext_tpu.training.pipeline import train_depth_metrics as jax_train_depth_metrics
 from sfmnext_tpu_torch.ops import metrics
 from sfmnext_tpu_torch.training.pipeline import train_depth_metrics
+from test_torch_models import _one_thread  # noqa: F401
 
 RTOL = 1e-6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module: the suite runs several workers
-    on a few cores, where torch's default thread pool per worker only
-    oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _depths(seed, shape=(2, 20, 30)):

@@ -25,6 +25,18 @@ from sfmnext_tpu.utils import torch_export
 from sfmnext_tpu_torch.models import PoseCNN, ResNetEncoder, ResnetEncoderDecoder, SQLDecoder
 from sfmnext_tpu_torch.utils.jax_weights import from_jax_variables
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on a few cores, where torch's default thread pool per worker only
+    oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 H, W = 64, 192
 SQL_KW = dict(embedding_dim=16, patch_size=8, query_nums=16, dim_out=32)
 

@@ -30,7 +30,8 @@ from sfmnext_tpu.training.builder import build_models, init_params
 from sfmnext_tpu.utils.torch_export import save_reference_style_checkpoint
 from sfmnext_tpu_torch import test_simple
 from sfmnext_tpu_torch.sql_depth import SQLdepth
-from test_torch_models import numpy_variables
+from test_torch_models import _one_thread, numpy_variables  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = ["--height", "64", "--width", "192", "--num_features", "64",
@@ -107,7 +108,8 @@ def test_port_runs_without_jax():
         "          if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sfmnext_tpu')]\n"
         "assert not loaded, loaded\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one intra-op thread, as the module's own fixture gives its process
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

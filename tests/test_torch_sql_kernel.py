@@ -23,6 +23,8 @@ from jax.experimental.pallas import tpu as pltpu
 from sfmnext_tpu.ops import sql_attention as jax_sql
 from sfmnext_tpu.ops.pallas import sql_kernel as jax_kernel
 from sfmnext_tpu_torch.ops import sql_attention, sql_kernel
+from test_torch_models import _one_thread  # noqa: F401
+
 
 B, H, W, E, Q, D = 2, 16, 128, 32, 16, 24
 

@@ -31,6 +31,8 @@ from jax.experimental.pallas import tpu as pltpu
 from sfmnext_tpu.ops import image as jax_image, losses as jax_losses
 from sfmnext_tpu.ops.pallas import ssim_kernel as jax_ssim_kernel
 from sfmnext_tpu_torch.ops import image, losses, ssim_kernel
+from test_torch_models import _one_thread  # noqa: F401
+
 
 FWD_TOL = 2e-2
 GRAD_TOL = 5e-2

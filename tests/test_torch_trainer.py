@@ -42,6 +42,7 @@ from sfmnext_tpu_torch.training.builder import build_models
 from sfmnext_tpu_torch.training.step import make_optimizer, make_train_step
 from sfmnext_tpu_torch.training.trainer import Trainer, seed_step
 from sfmnext_tpu_torch.utils.jax_weights import load_reference_folder
+from test_torch_models import _one_thread  # noqa: F401
 
 ARGS = ["--num_layers", "18", "--num_features", "64", "--model_dim", "16",
         "--patch_size", "4", "--query_nums", "16", "--dim_out", "16",
@@ -50,17 +51,6 @@ ARGS = ["--num_layers", "18", "--num_features", "64", "--model_dim", "16",
         "--steps_per_epoch", "3", "--num_epochs", "2", "--log_frequency", "2",
         "--scheduler_step_size", "1"]
 STEPS = 6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module: the suite runs several workers
-    on a few cores, where torch's default thread pool per worker only
-    oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ from jax.experimental.pallas import tpu as pltpu
 from sfmnext_tpu.ops import geometry as jax_geometry, warp as jax_warp
 from sfmnext_tpu.ops.pallas.warp_kernel import warp_border_pallas
 from sfmnext_tpu_torch.ops import geometry, warp, warp_kernel
+from test_torch_models import _one_thread  # noqa: F401
 
 
 def _poses(seed, b=3):

@@ -28,6 +28,7 @@ from jax.experimental.pallas import tpu as pltpu
 from sfmnext_tpu.ops import geometry as jax_geometry, warp as jax_warp
 from sfmnext_tpu.ops.pallas.warp_kernel import grid_sample_pallas
 from sfmnext_tpu_torch.ops import geometry, warp, warp_kernel
+from test_torch_models import _one_thread  # noqa: F401
 
 
 def _scaled_close(got, want, tol):
