@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SQLdepth inference path, its flagship
 self-supervised training step, its --avg_reprojection variant, the
-indoor training step, the Trainer, the evaluation and metric finetuning
-with its evaluation on one CUDA card.
+indoor training step, the Trainer, the evaluation, metric finetuning
+with its evaluation, and the ConvNeXt-L (stereo) and EfficientNet-B5
+models on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -29,10 +30,12 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      sources, jitter on [8,3,320,1024,3]; indoor B=8, 288x384, the SQL ops
      at N=144*192 with 64 bins, the warps on 3 and 1 channels with samples
      past the border), at the SQL ops of the resnet18_lite argfile (B=12,
-     N=96*320, Q=120, E=128, D=128) and at ragged ones (an identity equal
+     N=96*320, Q=120, E=128, D=128), of the ConvNeXt-L one (B=16,
+     N=160*512, Q=64, E=32, D=64) and of the EfficientNet-B5 one (B=6, the
+     flagship's widths), and at ragged ones (an identity equal
      to a warped source there: it takes the ties), with median device
-     times (the SQL kernels at the flagship, indoor and resnet18_lite
-     shapes, the forwards also at the serving batch of 1; a sleep kernel
+     times (the SQL kernels at the flagship, indoor, resnet18_lite and
+     ConvNeXt-L shapes, the forwards also at the serving batch of 1; a sleep kernel
      queued ahead of the start event, so no host time counts) of
      the kernel, the plain version and, where one PyTorch call computes the
      same function, that call (library_ms, timed in turns with the kernel:
@@ -124,9 +127,32 @@ Phases, one line or a few each; any failure raises and exits non-zero:
      median step, images/s, peak memory, validate images/s and the
      checkpoint writes; with --profile, a torch.profiler breakdown of two
      finetune steps;
- 11. one JSON line of kernel results (launches per path, the Trainer's
+ 11. convnext: training/trainer.Trainer at args_files/hisfog/kitti/
+     cvnXt_L_320x1024.txt (the ConvNeXt-L Unet, decoder channels 1024 512
+     256 128, model_dim 32, patch 32, 64 queries, 64 bins, 320x1024, batch
+     16, bf16, --use_stereo --diff_lr; --weights_init scratch) on a
+     synthetic batch with a stereo frame and stereo_T, flip + ColorJitter
+     on the card: a warm-up step and 5 more, each launching the SQL, SSIM
+     and jitter kernels once and the border warp and its backward three
+     times (two temporal sources and the stereo frame); finite losses,
+     parameters and BatchNorm statistics that move; SQLdepth serving from
+     the Trainer's epoch-0 checkpoint at batch 1 (both SQL forwards once a
+     request, depth finite and in range, the fused decoder against its
+     unfused twin, the latency); one kernel step held against one plain
+     step as in phase 6 (in the bf16 loss the pose gradient against the
+     float32-loss plain step: within 5e-2, or no farther than the bf16
+     plain step); the median step, images/s and peak memory; with
+     --profile, a torch.profiler breakdown of two steps;
+ 12. effb5: the same at args_files/hisfog/kitti/effb5_320x1024.txt
+     (EfficientNet-B5 + DecoderBN, num_features 2048, batch 6, frames 0
+     -1 1: a step launches as phase 6's);
+ 13. the ConvNeXt-L depthwise 7x7 convolutions (each stage's, bf16, batch
+     16), timed in channels-last and in NCHW memory, and the whole
+     encoder's forward + backward (channels-last);
+ 14. one JSON line of kernel results (launches per path, the Trainer's
      as launches_trainer, the evaluation's as launches_eval, finetuning's
-     as launches_finetune), then the result line.
+     as launches_finetune, the two models' as launches_convnext and
+     launches_effb5), then the result line.
 Without a visible CUDA card it exits 1 and prints no result. It imports
 nothing of JAX and nothing of the JAX package (sfmnext_tpu).
 """
@@ -157,6 +183,7 @@ from sfmnext_tpu_torch.data.synthetic import SyntheticDriveDataset, make_batch
 from sfmnext_tpu_torch.device import cuda_device, disable_tf32
 from sfmnext_tpu_torch.finetune import FinetuneTrainer
 from sfmnext_tpu_torch.finetune.trainer import finetune_loss
+from sfmnext_tpu_torch.models.convnext import ConvNeXt, convnext_cfg
 from sfmnext_tpu_torch.ops import (_build, geometry, jitter_kernel, sql_attention, sql_kernel,
                                    ssim_kernel, warp, warp_kernel)
 from sfmnext_tpu_torch.sql_depth import SQLdepth
@@ -259,6 +286,21 @@ INDOOR_LAUNCHES = launches(sql_summary=3, sql_depth=3, sql_summary_bwd=3, sql_de
 # no jitter (the warps go through the kernel in eval too: the route is
 # opt.use_pallas alone)
 VAL_LAUNCHES = launches(sql_summary=1, sql_depth=1, warp_border=2, ssim_fwd=1, ssim_ident_min=1)
+# a --use_stereo step (frames 0 -1 1 s): the stereo frame adds a third warp,
+# with its coordinate backward, a third source to the SSIM stack and the
+# identity min, and a fourth frame to the one jitter launch
+STEREO_STEP_LAUNCHES = {**STEP_LAUNCHES, "warp_border": 3, "warp_border_bwd": 3}
+# the paper's other two KITTI models, each through the Trainer at its
+# argfile's full width and batch: tag -> (argfile, its (backbone, batch,
+# patch, query_nums, dim_out), a step's launches)
+BACKBONES = {
+    "convnext": (ROOT / "args_files" / "hisfog" / "kitti" / "cvnXt_L_320x1024.txt",
+                 ("convnext_large", 16, 32, 64, 64), STEREO_STEP_LAUNCHES),
+    "effb5": (ROOT / "args_files" / "hisfog" / "kitti" / "effb5_320x1024.txt",
+              ("eff_b5", 6, 20, 128, 128), STEP_LAUNCHES),
+}
+BACKBONE_STEPS = 5  # after one warm-up step
+LAYOUT_RUNS = 5  # the ConvNeXt encoder's forward and backward, timed
 TRAIN_ARGS = [str(ARGFILE)]  # batch 8, bf16, SSIM 0.85, automasking
 # the Trainer at the flagship argfile: 2 epochs of 4 steps, a log (and one val
 # minibatch) on batches 0 and 2 of each epoch, then a second Trainer resumed
@@ -303,6 +345,11 @@ D_INDOOR = 64
 # 12, query_nums 120, model_dim 128, dim_out 128) at DecoderBN's half
 # resolution of 192x640: (B, H x W, Q, E, D)
 LITE_SQL = (12, (96, 320), 120, 128, 128)
+# the SQL ops of the ConvNeXt-L argfile (batch 16, query_nums 64, dim_out
+# 64) and of the EfficientNet-B5 one (batch 6, the flagship's widths) at the
+# 1/2 resolution of 320x1024
+CVNXT_SQL = (16, (160, 512), 64, 32, 64)
+EFFB5_SQL = (6, (160, 512), 128, 32, 128)
 # kernel vs plain at the training shapes. The SQL backward kernels round
 # where their plain versions round but sum in another order, so a bf16
 # rounding can fall the other way (bf16 is 2^-8 = 3.9e-3): each output
@@ -680,12 +727,14 @@ def check_training_kernels(dev):
     every = ("sql_summary", "sql_depth", "sql_summary_bwd", "sql_depth_bwd")
     # (the kernels timed there, B, H x W, Q, E, D): the flagship step's
     # decoder (its times go into the kernels line), the indoor one, the
-    # serving forward at batch 1, ragged shapes, and the resnet18_lite
-    # argfile's decoder at the widest E
+    # serving forward at batch 1, ragged shapes, the resnet18_lite
+    # argfile's decoder at the widest E, the ConvNeXt-L argfile's (Q and D
+    # 64) in training and serving, and the EfficientNet-B5 one's batch
     cases = ((every, B_TRAIN, (h // 2, w // 2), Q, E, D),
              (every, B_TRAIN, (hi // 2, wi // 2), Q, E, D_INDOOR),
              (every[:2], 1, (h // 2, w // 2), Q, E, D),
-             ((), 2, HW_RAGGED, Q, E, D), ((), 2, (30, 50), 120, 56, 100), (every, *LITE_SQL))
+             ((), 2, HW_RAGGED, Q, E, D), ((), 2, (30, 50), 120, 56, 100), (every, *LITE_SQL),
+             (every, *CVNXT_SQL), (every[:2], 1, *CVNXT_SQL[1:]), ((), *EFFB5_SQL))
     for i, (timed, b, hw, q, e, d) in enumerate(cases):
         main = i == 0
         g = torch.Generator(device=dev).manual_seed(b + q + d)
@@ -1230,6 +1279,44 @@ def compare_steps(dev, opt, batch):
                              *kernel_vs_plain(dev, o, batch, pipeline.forward), loss_tol, grad_tol)
 
 
+def compare_backbone_steps(dev, opt, batch, tag):
+    """``compare_steps`` for the two models' phases: the kernel and the
+    plain step, in the bf16 and the float32 loss dtype, on the batch
+    augmented once with fixed draws, held to the flagship's limits, but
+    for the bf16 pose gradient. There the plain route rounds the SSIM
+    products to bf16 where the kernels keep float32 (ROADMAP.md §3, "bf16
+    SSIM products"), and the pose net, which only the photometric loss
+    reaches, carries that rounding most: the kernel step's pose gradient
+    must lie within the flagship's 5e-2 of the float32-loss plain step's,
+    or no farther from it than the bf16 plain step's own."""
+    b = opt.batch_size
+    order, factors, _ = augment.jitter_params(torch.Generator(device=dev).manual_seed(1), b)
+    batch = augment.apply_augmentation(batch, torch.arange(b, device=dev) % 2 == 0,
+                                       torch.arange(b, device=dev) % 4 != 3, order, factors)
+    steps = {}
+    for loss_dtype in ("float32", "auto"):
+        o = dataclasses.replace(opt, loss_dtype=loss_dtype)
+        for route in ("kernel", "plain"):
+            steps[route, loss_dtype] = one_step(dev, o, batch, pipeline.forward, route == "kernel")
+            torch.cuda.empty_cache()
+    check_step_agreement(tag, "kernel step vs plain step, loss dtype float32",
+                         steps["kernel", "float32"][0], steps["plain", "float32"][0],
+                         *rel_errors(steps["kernel", "float32"], steps["plain", "float32"]),
+                         STEP_F32_LOSS_RTOL, STEP_F32_GRAD_RTOL)
+    reference = steps["plain", "float32"]
+    pose_k = rel_errors(steps["kernel", "auto"], reference)[1]["pose"]
+    pose_p = rel_errors(steps["plain", "auto"], reference)[1]["pose"]
+    check_step_agreement(tag, "kernel step vs plain step, loss dtype auto",
+                         steps["kernel", "auto"][0], steps["plain", "auto"][0],
+                         *rel_errors(steps["kernel", "auto"], steps["plain", "auto"]),
+                         STEP_LOSS_RTOL, {k: STEP_GRAD_RTOL[k] for k in ("encoder", "depth")})
+    limit = max(STEP_GRAD_RTOL["pose"], pose_p)
+    print(f"[{tag}] the bf16 steps' pose gradient against the float32-loss plain step's: "
+          f"kernel {pose_k:.3e}, plain {pose_p:.3e} (the kernel's limit {limit:.3e})", flush=True)
+    require(pose_k <= limit, "the kernel step's bf16 pose gradient is farther from the float32 "
+                             "step's than the flagship's limit and the plain step's")
+
+
 def drive_avg_step(dev):
     """Two --avg_reprojection steps (automasking on, no augmentation): the
     identity stack through the SSIM forward without the min; finite losses,
@@ -1736,6 +1823,179 @@ def drive_finetune(dev, smi, profile=False):
     return {k: made[k] + eval_made[k] for k in made}
 
 
+def backbone_batch(opt):
+    """A synthetic batch at the argfile's size, its ground-truth depth
+    kept (the Trainer's log steps score it); with --use_stereo the stereo
+    frame is a render two steps along x, and stereo_T carries the 0.1
+    baseline of the KITTI datasets."""
+    ids = tuple(2 if f == "s" else f for f in opt.all_frame_ids)
+    batch = SyntheticDriveDataset(opt.height, opt.width, ids, seed=0).batch(opt.batch_size)
+    if opt.use_stereo:
+        stereo_T = np.broadcast_to(np.eye(4, dtype=np.float32), (opt.batch_size, 4, 4)).copy()
+        stereo_T[:, 0, 3] = 0.1
+        batch["stereo_T"] = stereo_T
+    return batch
+
+
+def drive_backbone(dev, smi, tag, profile=False):
+    """Phases 11 and 12: the ConvNeXt-L Unet (stereo) or the EfficientNet-B5
+    model at its argfile's full width and batch (--weights_init scratch),
+    through training/trainer.Trainer on a synthetic batch, augmentation on:
+    a warm-up step and BACKBONE_STEPS more, each with its losses read; the
+    loss finite, parameters and BatchNorm statistics moved, exactly the
+    launches of a step each; then SQLdepth serving from the Trainer's
+    epoch-0 checkpoint at batch 1 (both SQL forwards once a request, depth
+    finite and in range, the fused decoder against its unfused twin,
+    latency), and the kernel step against the plain step
+    (``compare_backbone_steps``). Returns the launch counts of the
+    Trainer's steps and the serving forwards. ``profile``: a
+    torch.profiler breakdown of two more steps after the counted ones."""
+    argfile, (backbone, b, patch, q, d), step_launches = BACKBONES[tag]
+    run_dir = ROOT / "runs" / f"chip_smoke_{tag}"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    opt = parse_options([str(argfile), "--weights_init", "scratch", "--log_dir", str(run_dir),
+                         "--num_epochs", "1", "--steps_per_epoch", str(1 + BACKBONE_STEPS),
+                         "--log_frequency", "1", "--save_frequency", "1000"])
+    got = (opt.backbone, opt.batch_size, opt.patch_size, opt.query_nums, opt.dim_out,
+           opt.height, opt.width)
+    require(got == (backbone, b, patch, q, d, *HW_TRAIN), f"unexpected {tag} config {got}")
+    batch = backbone_batch(opt)
+    torch.cuda.empty_cache()
+    trainer = Trainer(opt, [batch] * (1 + BACKBONE_STEPS), None)
+    models = trainer.models
+    n_params = sum(p.numel() for m in models.modules().values() for p in m.parameters())
+    watched = {f"{name}.{pname}": p for name, m in models.modules().items()
+               for pname, p in (list(m.named_parameters())[0], list(m.named_parameters())[-1])}
+    bn = next(m for m in models.encoder.modules() if isinstance(m, torch.nn.BatchNorm2d))
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    bn_before = (bn.running_mean.clone(), bn.running_var.clone())
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    made = counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: (1 + BACKBONE_STEPS) * v for k, v in step_launches.items()}
+    require(made == want, f"[{tag}] the Trainer launched {made}, not {want}")
+    recs = read_jsonl(run_dir / opt.model_name / "train" / "metrics.jsonl")
+    losses = [r["loss"] for r in recs]
+    require(len(losses) == 1 + BACKBONE_STEPS and all(np.isfinite(losses)),
+            f"[{tag}] losses {losses}")
+    moved = {k: float((v.detach() - before[k]).abs().max()) for k, v in watched.items()}
+    require(all(m > 0 for m in moved.values()), f"[{tag}] parameters did not move: {moved}")
+    bn_moved = (float((bn.running_mean - bn_before[0]).abs().max()),
+                float((bn.running_var - bn_before[1]).abs().max()))
+    require(all(m > 0 for m in bn_moved), f"[{tag}] BatchNorm statistics did not move")
+    steps = trainer.timings["step"][1:]
+    med = statistics.median(steps)
+    print(f"[{tag}] {backbone} {opt.height}x{opt.width} batch {b} {opt.compute_dtype}, patch "
+          f"{patch}, Q {q}, D {d}, {n_params:,} parameters, frames {opt.all_frame_ids}"
+          f"{', --diff_lr' if opt.diff_lr else ''}: the Trainer's {1 + BACKBONE_STEPS} steps "
+          f"(the first a warm-up), losses {[round(x, 6) for x in losses]}; launches per step "
+          f"{ {k: v for k, v in step_launches.items() if v} }", flush=True)
+    print(f"[{tag}] parameters moved by up to {moved}; a BatchNorm's running mean/var by up "
+          f"to {bn_moved}", flush=True)
+    print(f"[{tag}] median step {med * 1e3:.2f} ms over {BACKBONE_STEPS} steps "
+          f"({[round(t * 1e3, 2) for t in steps]} ms; batch upload to the losses' read), "
+          f"{b / med:.2f} images/s, peak memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated), the Trainer's wall {wall:.2f} s; {smi}",
+          flush=True)
+    if profile:
+        profile_steps(dev, trainer.train_step, trainer._device_batch(batch), trainer.generator,
+                      f"{tag} steps", f"{tag}_step_trace.json")
+    del trainer, models, watched, before
+    torch.cuda.empty_cache()
+
+    # serving from the epoch-0 checkpoint, in the argfile's bf16
+    folder = run_dir / opt.model_name / "models" / "weights_0"
+    model = SQLdepth(dataclasses.replace(opt, load_pretrained_model=True,
+                                         load_pt_folder=str(folder)), dev)
+    image = synthetic_images(1, opt.height, opt.width, seed=1)
+    model(image)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    times = []
+    for _ in range(LATENCY_RUNS):
+        t0 = time.perf_counter()
+        depth = model(image)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    served = counts()
+    require(served == launches(sql_summary=LATENCY_RUNS, sql_depth=LATENCY_RUNS),
+            f"[{tag}] {LATENCY_RUNS} requests launched {served}")
+    lo, hi = float(depth.min()), float(depth.max())
+    require(tuple(depth.shape) == (1, opt.height, opt.width, 1)
+            and bool(torch.isfinite(depth).all()) and opt.min_depth <= lo
+            and hi <= opt.max_depth, f"[{tag}] depth {tuple(depth.shape)} in [{lo}, {hi}]")
+    with torch.inference_mode():
+        x = torch.as_tensor(image, device=dev).permute(0, 3, 1, 2)
+        feats = model.models.encoder(x)
+        fused = model.models.depth(feats)["disp0"]
+        unfused = model.models.depth(feats, return_energy=True)["disp0"]
+    err, ok = compare(fused, unfused, **FUSED_TOL)
+    med_serve = statistics.median(times)
+    print(f"[{tag}] serving from {folder.relative_to(ROOT)} (load_reference_folder): depth in "
+          f"[{lo:.4f}, {hi:.4f}]; fused vs unfused disp0 max_abs_err {err:.4e} ({FUSED_TOL}); "
+          f"batch-1 latency median {med_serve * 1e3:.3f} ms over {LATENCY_RUNS} requests "
+          f"({1 / med_serve:.2f} images/s); {smi}", flush=True)
+    require(ok, f"[{tag}] the fused decoder disagrees with its unfused twin")
+    del model
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if k != "depth_gt"}
+    compare_backbone_steps(dev, opt, dev_batch, tag)
+    return {k: made[k] + served[k] for k in made}
+
+
+def convnext_layouts(dev, smi):
+    """ConvNeXt-L's depthwise 7x7 convolutions (bf16, batch 16 at 320x1024:
+    each stage's first block) in channels-last and in NCHW memory, and the
+    whole encoder's forward and backward under bf16 autocast (it runs
+    channels-last); device times. Weights random, not initialised as the
+    model's: only the times count."""
+    opt = parse_options([str(BACKBONES["convnext"][0])])
+    b, (h, w) = opt.batch_size, HW_TRAIN
+    with torch.device("meta"):
+        enc = ConvNeXt(*convnext_cfg(opt.backbone))
+    enc = enc.to_empty(device=dev)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.normal_(0.0, 0.02)
+    layouts = {"channels_last": torch.channels_last, "NCHW": torch.contiguous_format}
+    for si, stage in enumerate(enc.stages):
+        conv = stage.blocks[0].dwconv
+        x = torch.randn(b, conv.in_channels, h // 2 ** (si + 2), w // 2 ** (si + 2), device=dev)
+        line = []
+        for name, fmt in layouts.items():
+            xi = x.to(torch.bfloat16).contiguous(memory_format=fmt).requires_grad_()
+            g = torch.randn_like(xi)
+
+            def fwd():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    return conv(xi)
+
+            fb = lambda: torch.autograd.grad(fwd(), (xi, conv.weight), g)  # noqa: E731
+            line.append(f"{name} forward {median_ms(fwd):.4f} ms, forward+backward "
+                        f"{median_ms(fb):.4f} ms")
+        print(f"[convnext] depthwise 7x7 of stage {si} ({tuple(x.shape)}, bf16): "
+              f"{'; '.join(line)}; {smi}", flush=True)
+    x = torch.rand(b, 3, h, w, device=dev)
+
+    def fb():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            feats = enc(x)
+        sum(f.float().mean() for f in feats).backward()
+
+    print(f"[convnext] the encoder's forward + backward, batch {b} {h}x{w} bf16 autocast, "
+          f"channels-last: {median_ms(fb, runs=LAYOUT_RUNS, warmup=1):.2f} ms; {smi}",
+          flush=True)
+    del enc
+    torch.cuda.empty_cache()
+
+
 def host_ms(fn, runs=3):
     """Median host time of fn() to a synchronize, ms."""
     times = []
@@ -1844,6 +2104,9 @@ def main() -> int:
     paths["trainer"] = drive_trainer(dev, smi, bare_step)
     paths["eval"] = drive_eval(dev, smi, profile)
     paths["finetune"] = drive_finetune(dev, smi, profile)
+    for tag in BACKBONES:
+        paths[tag] = drive_backbone(dev, smi, tag, profile)
+    convnext_layouts(dev, smi)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "sfmnext_tpu"))
     require(not imported, f"JAX or the JAX package was imported: {imported}")

@@ -7,8 +7,8 @@ saturation factors in 0.8-1.2 and a hue shift in +-0.1, applied in a random
 order, the same for every frame of an item).
 The flip applies to ``color`` and ``color_aug`` (and to ``depth_gt`` when
 present); the jitter to ``color_aug`` only, which is made from the flipped
-``color``. Stereo batches are not ported (the JAX package also negates the
-flipped baseline, mono_dataset.py:195-197).
+``color``; a flipped sample's stereo baseline ``stereo_T[0, 3]`` changes
+sign (mono_dataset.py:195-197).
 
 The draws come from a ``torch.Generator`` (``jitter_params``,
 ``augment_batch``); ``apply_augmentation`` takes them explicitly, so a test
@@ -48,6 +48,10 @@ def apply_augmentation(batch, do_flip, do_jit, order, factors):
     out["color_aug"] = color_jitter(flipped, order, factors, do_jit)
     if "depth_gt" in batch:
         out["depth_gt"] = torch.where(flip5[:, 0], batch["depth_gt"].flip(2), batch["depth_gt"])
+    if "stereo_T" in batch:
+        stereo_T = batch["stereo_T"].clone()
+        stereo_T[:, 0, 3] = torch.where(do_flip, -stereo_T[:, 0, 3], stereo_T[:, 0, 3])
+        out["stereo_T"] = stereo_T
     return out
 
 

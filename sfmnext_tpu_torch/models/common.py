@@ -2,8 +2,10 @@
 BatchNorm of the JAX package.
 
 Counterpart of the initialisers in ``sfmnext_tpu/models/common.py``: torch's
-own defaults, but drawn from a generator so that a model is a function of
-``opt.seed`` and leaves the global RNG alone.
+own defaults, and the JAX package's truncated-normal variance scalings
+(flax's ``lecun_normal``, ``kaiming_normal_fanout``), drawn from a
+generator so that a model is a function of ``opt.seed`` and leaves the
+global RNG alone.
 """
 
 from __future__ import annotations
@@ -55,3 +57,27 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_((1 - self.momentum) / n).add_(new_var, alpha=(n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+
+@torch.no_grad()
+def variance_scaling_(w: torch.Tensor, generator: torch.Generator, scale: float,
+                      mode: str) -> None:
+    """JAX's ``variance_scaling(scale, mode, "truncated_normal")`` on a
+    torch weight: a normal truncated at two deviations, scaled so that its
+    variance is scale / fan. The fans are flax's: a convolution's receptive
+    field times its input channels a group (``fan_in``) or its outputs
+    (``fan_out``); a linear layer's in or out features."""
+    receptive = w[0][0].numel() if w.dim() > 2 else 1
+    fan = (w.shape[1] if mode == "fan_in" else w.shape[0]) * receptive
+    std = math.sqrt(scale / fan) / 0.87962566103423978  # the truncation's std
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default kernel init (``lecun_normal``)."""
+    variance_scaling_(w, generator, 1.0, "fan_in")
+
+
+def kaiming_normal_fanout_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """``kaiming_normal_fanout`` of ``sfmnext_tpu/models/common.py``."""
+    variance_scaling_(w, generator, 2.0, "fan_out")

@@ -8,11 +8,12 @@ metrics against ground truth). The indoor pipeline is
 ``training/indoor.py``.
 
 The batch is the JAX package's: ``color`` and ``color_aug`` [B,F,H,W,3]
-with F following ``opt.all_frame_ids``, ``K`` and ``inv_K`` [B,4,4], all
-on the models' device. The networks run under autocast in the compute
-dtype (their parameters stay float32, as flax keeps its params); depth,
-geometry, warps and losses run outside it, the geometry and warps in
-float32. With ``opt.use_pallas`` the SQL decoder, the warps and the SSIM
+with F following ``opt.all_frame_ids``, ``K`` and ``inv_K`` [B,4,4] and,
+with ``--use_stereo``, ``stereo_T`` [B,4,4] (the stereo frame's
+transform), all on the models' device. The networks run under autocast
+in the compute dtype (their parameters stay float32, as flax keeps its
+params); depth, geometry, warps and losses run outside it, the geometry
+and warps in float32. With ``opt.use_pallas`` the SQL decoder, the warps and the SSIM
 loss go through the Hopper kernels (their plain versions for CPU
 tensors), as the JAX package routes them on a TPU; without it, through
 the plain ops. The route depends on ``opt.use_pallas`` alone, in the
@@ -84,8 +85,8 @@ def forward(models, batch, opt, generator=None):
       (total loss, {"outputs", "metrics"}); BatchNorm running statistics
       update in place.
     """
-    if opt.predictive_mask or opt.use_stereo:
-        raise NotImplementedError("--predictive_mask and --use_stereo are not ported yet")
+    if opt.predictive_mask:
+        raise NotImplementedError("--predictive_mask is not ported yet")
     frame_ids = opt.all_frame_ids
     color = batch["color"]
     dev = color.device
@@ -98,21 +99,27 @@ def forward(models, batch, opt, generator=None):
     depth = resize_bilinear(depth_half, (h, w), align_corners=False).permute(0, 2, 3, 1)
     outputs = {"depth": depth, "bin_centers": dec["bin_centers"]}
 
-    # 2. poses; PoseCNN translations scale by the mean inverse depth
+    # 2. poses (no pose net for --frame_ids 0 --use_stereo); PoseCNN
+    # translations scale by the mean inverse depth without --use_stereo
     # (trainer.py:412-421)
-    poses = predict_poses(models, batch, frame_ids, opt)
+    poses = {} if models.pose is None else predict_poses(models, batch, frame_ids, opt)
     mean_inv_depth = (1.0 / depth).mean(dim=(1, 2, 3))
 
-    # 3. warp every source frame into the target view
+    # 3. warp every source frame into the target view; the stereo frame
+    # "s" by the batch's stereo_T
     K, inv_K = batch["K"], batch["inv_K"]
     target = color[:, 0].contiguous()  # the loss kernels' [B,H,W,3] layout
     loss_dtype = opt.compute_dtype if opt.loss_dtype == "auto" else opt.loss_dtype
     ldt = torch.bfloat16 if loss_dtype == "bfloat16" else torch.float32
     warped_srcs, ident_srcs = [], []
     for idx, f_i in enumerate(frame_ids[1:], start=1):
-        axisangle, translation, invert = poses[f_i]
-        translation = translation * mean_inv_depth[:, None]
-        T = geometry.transformation_from_parameters(axisangle, translation, invert=invert)
+        if f_i == "s":
+            T = batch["stereo_T"]
+        else:
+            axisangle, translation, invert = poses[f_i]
+            if not opt.use_stereo:
+                translation = translation * mean_inv_depth[:, None]
+            T = geometry.transformation_from_parameters(axisangle, translation, invert=invert)
         src = color[:, idx].contiguous()  # the warp kernel's [B,H,W,3] layout
         warped, _ = warp_frame(src, depth, inv_K, K, T, use_kernel=opt.use_pallas)
         outputs[f"warped_{f_i}"] = warped

@@ -1,4 +1,4 @@
-"""ImageNet-pretrained ResNet trunks (``--weights_init pretrained``).
+"""ImageNet-pretrained encoder trunks (``--weights_init pretrained``).
 Counterpart of ``sfmnext_tpu/utils/imagenet_init.py`` for the trunks the
 port builds.
 
@@ -6,19 +6,24 @@ Behavioral reference:
   - networks/resnet_encoder.py:44,57 — torchvision ImageNet ResNet weights
     for the depth encoder; :55-61 tiles ``conv1.weight`` across stacked
     input frames and divides by the frame count;
+  - networks/base_encoder.py:94 — gen-efficientnet ``tf_efficientnet_b5_ap``;
+  - networks/Unet.py:114-117 — timm backbones (``<backbone>.pth``);
   - networks/rectify_net.py:13-15 — a pretrained 2-image ResNet-18.
 
-The weights are torchvision state dicts (``resnet{N}.pth``) in a local
-directory: ``$SFMNEXT_WEIGHTS``, else ``<repo>/weights``. Nothing is
-fetched: an absent file raises ``FileNotFoundError`` with the expected
-path. ``--weights_init scratch`` skips all of this.
+The weights are state dicts (``resnet{N}.pth``,
+``tf_efficientnet_b5_ap.pth``, ``convnext_*.pth``) in a local directory:
+``$SFMNEXT_WEIGHTS``, else ``<repo>/weights``. Nothing is fetched: an
+absent file raises ``FileNotFoundError`` with the expected path.
+``--weights_init scratch`` skips all of this.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 import torch
+import torch.nn as nn
 
 from sfmnext_tpu_torch.models.resnet import ResNetEncoder
 
@@ -38,7 +43,7 @@ def weights_path(fname: str) -> str:
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"weights_init='pretrained' needs {fname} at {path} "
-            f"(set $SFMNEXT_WEIGHTS or place the torchvision state_dict there; "
+            f"(set $SFMNEXT_WEIGHTS or place the torch state_dict there; "
             f"pass '--weights_init scratch' for random init)"
         )
     return path
@@ -62,13 +67,49 @@ def load_imagenet_resnet(encoder: ResNetEncoder, num_layers: int, num_input_imag
                          f"missing {missing}, unexpected {unexpected}")
 
 
+def _convnext_keys(key: str) -> str:
+    """timm's naming variants of a convnext state dict -> the port's: the
+    features_only flattening (``stages_0.`` -> ``stages.0.``), the block's
+    ``conv_dw`` and ``mlp.fc1`` / ``mlp.fc2``."""
+    key = re.sub(r"\bstages_(\d+)\.", r"stages.\1.", key)
+    key = re.sub(r"\bstem_(\d+)\.", r"stem.\1.", key)
+    key = key.replace(".mlp.fc1.", ".pwconv1.").replace(".mlp.fc2.", ".pwconv2.")
+    return key.replace(".conv_dw.", ".dwconv.")
+
+
+@torch.no_grad()
+def load_imagenet_trunk(trunk: nn.Module, fname: str, rename=None) -> None:
+    """Load ``fname`` (a state dict, or one under ``"model"``; a
+    DataParallel ``module.`` prefix stripped; keys mapped by ``rename``)
+    into ``trunk``. The file's keys that the trunk lacks (a classifier
+    head, a final BatchNorm) are dropped; every key of the trunk but
+    ``num_batches_tracked`` must be in the file."""
+    sd = torch.load(weights_path(fname), map_location="cpu", weights_only=True)
+    if "model" in sd and hasattr(sd["model"], "items"):
+        sd = sd["model"]
+    sd = {k.replace("module.", ""): v for k, v in sd.items()}
+    if rename is not None:
+        sd = {rename(k): v for k, v in sd.items()}
+    own = trunk.state_dict()
+    missing = [k for k in own if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise ValueError(f"{fname} does not fit the {type(trunk).__name__} trunk: "
+                         f"missing {missing}")
+    trunk.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=False)
+
+
 def apply_weights_init(opt, models) -> None:
-    """ImageNet weights into the depth encoder's ResNet trunk (its decoder
-    stays random, as in the reference) and RectifyNet's 2-image ResNet-18.
+    """ImageNet weights into the depth encoder's trunk (its decoder stays
+    random, as in the reference) and RectifyNet's 2-image ResNet-18.
     No-op for ``--weights_init scratch``."""
     if opt.weights_init != "pretrained":
         return
-    load_imagenet_resnet(models.encoder.encoder, opt.num_layers)
+    if opt.backbone == "eff_b5":
+        load_imagenet_trunk(models.encoder.encoder.original_model, "tf_efficientnet_b5_ap.pth")
+    elif opt.backbone.startswith("convnext"):
+        load_imagenet_trunk(models.encoder.encoder, f"{opt.backbone}.pth", _convnext_keys)
+    else:
+        load_imagenet_resnet(models.encoder.encoder, opt.num_layers)
     if models.rectify is not None:
         load_imagenet_resnet(models.rectify.encoder, 18, num_input_images=2)
     print(f"-> ImageNet init from {weights_dir()} ({opt.backbone})")

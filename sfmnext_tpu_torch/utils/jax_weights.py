@@ -26,12 +26,12 @@ def _to_torch(sd) -> Dict[str, torch.Tensor]:
 def from_jax_variables(variables) -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX ``{"params", "batch_stats"}`` (arrays or numpy) -> the port's
     state dicts ``{"encoder", "depth"[, "pose"][, "rectify"]}``, BatchNorm
-    running statistics included; ``"pose"`` when the tree holds a PoseCNN,
+    running statistics included; the encoder a ResNet, EfficientNet-B5 or
+    ConvNeXt-Unet encoder-decoder; ``"pose"`` when the tree holds a PoseCNN,
     ``"rectify"`` when it holds a RectifyNet."""
     params, stats = variables["params"], variables["batch_stats"]
     out = {
-        "encoder": _to_torch(torch_export.export_resnet_encoder_decoder(
-            params["encoder"], stats["encoder"])),
+        "encoder": _to_torch(torch_export.export_encoder(params["encoder"], stats["encoder"])),
         "depth": _to_torch(torch_export.export_sql_decoder(params["depth"])),
     }
     if "pose" in params:

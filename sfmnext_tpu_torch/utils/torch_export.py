@@ -2,9 +2,9 @@
 state-dict keys, in numpy only.
 
 The port's own copy of the maps it needs from
-``sfmnext_tpu/utils/torch_export.py`` (ResNet encoder-decoder, SQL decoder,
-PoseCNN, RectifyNet), so that loading JAX-trained weights imports nothing of the JAX
-package. The trees are nested dicts of arrays (anything ``np.asarray``
+``sfmnext_tpu/utils/torch_export.py`` (the ResNet, EfficientNet-B5 and
+ConvNeXt-Unet encoder-decoders, SQL decoder, PoseCNN, RectifyNet), so
+that loading JAX-trained weights imports nothing of the JAX package. The trees are nested dicts of arrays (anything ``np.asarray``
 takes); flax's ``HWIO`` convolution kernels become ``OIHW`` and dense
 kernels are transposed.
 """
@@ -37,6 +37,35 @@ def _put_bn(sd, dst, pnode, snode):
     sd[dst + ".running_var"] = np.asarray(snode["var"])
 
 
+def _put_ln(sd, dst, node):
+    sd[dst + ".weight"] = np.asarray(node["scale"])
+    sd[dst + ".bias"] = np.asarray(node["bias"])
+
+
+def _put_decoder_bn(sd, dec_p, dec_s) -> None:
+    """A DecoderBN tree under ``decoder.``."""
+    _put_conv(sd, "decoder.conv2", dec_p["conv2"]["Conv_0"])
+    _put_conv(sd, "decoder.conv3", dec_p["conv3"]["Conv_0"])
+    for u in range(1, 5):
+        up_p, up_s = dec_p[f"up{u}"], dec_s[f"up{u}"]
+        _put_conv(sd, f"decoder.up{u}._net.0", up_p["conv_a"]["Conv_0"])
+        _put_bn(sd, f"decoder.up{u}._net.1", up_p["bn_a"]["BatchNorm_0"],
+                up_s["bn_a"]["BatchNorm_0"])
+        _put_conv(sd, f"decoder.up{u}._net.3", up_p["conv_b"]["Conv_0"])
+        _put_bn(sd, f"decoder.up{u}._net.4", up_p["bn_b"]["BatchNorm_0"],
+                up_s["bn_b"]["BatchNorm_0"])
+
+
+def _blocks(tree, prefix):
+    """{stage: number of blocks} of the tree's ``<prefix><si>_block<bi>`` names."""
+    depths: Dict[int, int] = {}
+    for name in tree:
+        if name.startswith(prefix) and "_block" in name:
+            si, bi = name[len(prefix):].split("_block")
+            depths[int(si)] = max(depths.get(int(si), 0), int(bi) + 1)
+    return [depths[si] for si in sorted(depths)]
+
+
 def _put_resnet(sd, prefix, params, batch_stats) -> None:
     """A ResNetEncoder tree under torchvision's names after ``prefix``."""
     _put_conv(sd, prefix + "conv1", params["conv1"])
@@ -64,19 +93,89 @@ def export_resnet_encoder_decoder(params, batch_stats) -> Dict[str, np.ndarray]:
     """ResnetEncoderDecoder tree -> reference state-dict keys."""
     sd: Dict[str, np.ndarray] = {}
     _put_resnet(sd, "encoder.encoder.", params["encoder"], batch_stats["encoder"])
-
-    dec_p, dec_s = params["decoder"], batch_stats["decoder"]
-    _put_conv(sd, "decoder.conv2", dec_p["conv2"]["Conv_0"])
-    _put_conv(sd, "decoder.conv3", dec_p["conv3"]["Conv_0"])
-    for u in range(1, 5):
-        up_p, up_s = dec_p[f"up{u}"], dec_s[f"up{u}"]
-        _put_conv(sd, f"decoder.up{u}._net.0", up_p["conv_a"]["Conv_0"])
-        _put_bn(sd, f"decoder.up{u}._net.1", up_p["bn_a"]["BatchNorm_0"],
-                up_s["bn_a"]["BatchNorm_0"])
-        _put_conv(sd, f"decoder.up{u}._net.3", up_p["conv_b"]["Conv_0"])
-        _put_bn(sd, f"decoder.up{u}._net.4", up_p["bn_b"]["BatchNorm_0"],
-                up_s["bn_b"]["BatchNorm_0"])
+    _put_decoder_bn(sd, params["decoder"], batch_stats["decoder"])
     return sd
+
+
+def _put_efficientnet(sd, prefix, params, batch_stats) -> None:
+    """An EfficientNet tree under gen-efficientnet's names (``conv_stem``,
+    ``bn1``, ``blocks.<stage>.<block>.*``, ``conv_head``) after ``prefix``;
+    the blocks are read off the tree's ``stage<i>_block<j>`` names."""
+    _put_conv(sd, prefix + "conv_stem", params["conv_stem"])
+    _put_bn(sd, prefix + "bn1", params["bn1"]["BatchNorm_0"],
+            batch_stats["bn1"]["BatchNorm_0"])
+    for si, depth in enumerate(_blocks(params, "stage")):
+        for bi in range(depth):
+            p = params[f"stage{si}_block{bi}"]
+            s = batch_stats[f"stage{si}_block{bi}"]
+            dst = f"{prefix}blocks.{si}.{bi}"
+            if "expand_conv" not in p:
+                names = [("conv_dw", "dw_conv", "bn1", "dw_bn"),
+                         ("conv_pw", "project_conv", "bn2", "project_bn")]
+            else:
+                names = [("conv_pw", "expand_conv", "bn1", "expand_bn"),
+                         ("conv_dw", "dw_conv", "bn2", "dw_bn"),
+                         ("conv_pwl", "project_conv", "bn3", "project_bn")]
+            for t_conv, f_conv, t_bn, f_bn in names:
+                _put_conv(sd, f"{dst}.{t_conv}", p[f_conv])
+                _put_bn(sd, f"{dst}.{t_bn}", p[f_bn]["BatchNorm_0"], s[f_bn]["BatchNorm_0"])
+            _put_conv(sd, f"{dst}.se.conv_reduce", p["se_reduce"])
+            _put_conv(sd, f"{dst}.se.conv_expand", p["se_expand"])
+    _put_conv(sd, prefix + "conv_head", params["conv_head"])
+
+
+def export_base_encoder_decoder(params, batch_stats) -> Dict[str, np.ndarray]:
+    """BaseEncoderDecoder (eff_b5) tree -> reference ``encoder.pth`` keys."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_efficientnet(sd, "encoder.original_model.", params["encoder"], batch_stats["encoder"])
+    _put_decoder_bn(sd, params["decoder"], batch_stats["decoder"])
+    return sd
+
+
+def export_convnext_unet(params, batch_stats) -> Dict[str, np.ndarray]:
+    """Unet(convnext_*) tree -> reference ``encoder.pth`` keys (timm
+    ``encoder.*``, ``decoder.blocks.<i>.conv<j>.{conv,bn}``,
+    ``decoder.final_conv``); the encoder's blocks are read off the tree's
+    ``stage<i>_block<j>`` names."""
+    sd: Dict[str, np.ndarray] = {}
+    enc = params["encoder"]
+    _put_conv(sd, "encoder.stem.0", enc["stem_conv"])
+    _put_ln(sd, "encoder.stem.1", enc["stem_norm"])
+    for si, depth in enumerate(_blocks(enc, "stage")):
+        if si > 0:
+            _put_ln(sd, f"encoder.stages.{si}.downsample.0", enc[f"down{si}_norm"])
+            _put_conv(sd, f"encoder.stages.{si}.downsample.1", enc[f"down{si}_conv"])
+        for bi in range(depth):
+            blk = enc[f"stage{si}_block{bi}"]
+            dst = f"encoder.stages.{si}.blocks.{bi}"
+            _put_conv(sd, f"{dst}.dwconv", blk["dwconv"])
+            _put_ln(sd, f"{dst}.norm", blk["norm"])
+            for pw in ("pwconv1", "pwconv2"):
+                sd[f"{dst}.{pw}.weight"] = _lin_w(blk[pw]["kernel"])
+                sd[f"{dst}.{pw}.bias"] = np.asarray(blk[pw]["bias"])
+            sd[f"{dst}.gamma"] = np.asarray(blk["gamma"])
+    dec_p, dec_s = params["decoder"], batch_stats["decoder"]
+    for i in range(sum(1 for k in dec_p if k.startswith("block"))):
+        for c in (1, 2):
+            node = dec_p[f"block{i}"][f"conv{c}"]
+            dst = f"decoder.blocks.{i}.conv{c}"
+            _put_conv(sd, f"{dst}.conv", node["conv"])
+            _put_bn(sd, f"{dst}.bn", node["bn"]["BatchNorm_0"],
+                    dec_s[f"block{i}"][f"conv{c}"]["bn"]["BatchNorm_0"])
+    _put_conv(sd, "decoder.final_conv", dec_p["final_conv"])
+    return sd
+
+
+def export_encoder(params, batch_stats) -> Dict[str, np.ndarray]:
+    """Any depth encoder-decoder tree the port builds, by its trunk's names:
+    a ResNet (``conv1``), an EfficientNet (``conv_stem``) or a ConvNeXt
+    (``stem_conv``)."""
+    trunk = params["encoder"]
+    if "conv_stem" in trunk:
+        return export_base_encoder_decoder(params, batch_stats)
+    if "stem_conv" in trunk:
+        return export_convnext_unet(params, batch_stats)
+    return export_resnet_encoder_decoder(params, batch_stats)
 
 
 def export_sql_decoder(params) -> Dict[str, np.ndarray]:

@@ -12,6 +12,8 @@
     tolerance tests/test_jitter_kernel.py holds the Pallas kernel to;
   * a sample with ``do_jit`` false is copied bit for bit, and the flip
     applies to ``color`` and ``color_aug``;
+  * a flipped stereo sample's baseline ``stereo_T[0, 3]`` changes sign,
+    exactly as JAX ``augment_batch`` flips it;
   * the wrapper's input checks, its launch counter staying 0, and draws
     from a ``torch.Generator`` in their ranges.
 """
@@ -56,6 +58,34 @@ def test_augmentation_matches_jax_with_its_draws():
     np.testing.assert_array_equal(got["depth_gt"].numpy(), np.asarray(expect["depth_gt"]))
     np.testing.assert_allclose(got["color_aug"].numpy(), np.asarray(expect["color_aug"]),
                                rtol=0, atol=2e-6)
+
+
+def test_stereo_flip_negates_the_baseline_as_jax():
+    """A stereo batch (``stereo_T`` with baseline 0.1, mono_dataset.py:
+    195-197): the flipped samples' baseline changes sign, exactly as the
+    JAX ``augment_batch`` with the same key; the rest of the transform
+    and the unflipped samples stay as they were."""
+    stereo_T = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 4, 4)).copy()
+    stereo_T[:, 0, 3] = 0.1
+    stereo_T[:, 1, 3] = 0.02
+    batch = {"color": _color(0), "stereo_T": stereo_T}
+    key = jax.random.PRNGKey(2)
+    expect = jax_augment.augment_batch({k: jnp.asarray(v) for k, v in batch.items()}, key,
+                                       use_pallas=False)
+    k_flip, k_dojit, k_jit = jax.random.split(key, 3)  # augment.py:162-166
+    do_flip = np.array(jax.random.bernoulli(k_flip, 0.5, (B,)))
+    do_jit = np.array(jax.random.bernoulli(k_dojit, 0.5, (B,)))
+    order, factors = jax.vmap(jax_augment.jitter_params)(jax.random.split(k_jit, B))
+    assert do_flip.any() and not do_flip.all()
+
+    got = augment.apply_augmentation(
+        {k: torch.from_numpy(v) for k, v in batch.items()}, torch.from_numpy(do_flip),
+        torch.from_numpy(do_jit), torch.from_numpy(np.array(order, np.int32)),
+        torch.from_numpy(np.array(factors)))
+    np.testing.assert_array_equal(got["stereo_T"].numpy(), np.asarray(expect["stereo_T"]))
+    np.testing.assert_array_equal(got["stereo_T"][:, 0, 3].numpy(),
+                                  np.where(do_flip, -0.1, 0.1).astype(np.float32))
+    np.testing.assert_array_equal(batch["stereo_T"][:, 0, 3], np.float32(0.1))  # untouched
 
 
 def test_jitter_matches_pallas_interpret():

@@ -58,7 +58,12 @@ and two calls give the same bits.
 
 One metric-finetuning step at a small size (ResNet-18, 64x96, batch 4,
 bf16, sparse GT at 80x120, dropout off) launches each SQL kernel once, and
-its loss agrees with the plain route's to the flagship step's 1e-2.
+its loss agrees with the plain route's to the flagship step's 1e-2. So do
+a stereo step of the ConvNeXt Unet (``convnext_atto``, frames 0 -1 1 s)
+and a step of the EfficientNet-B5 model at 64x128, batch 2, which launch
+the warps once a source; an augmented step of each launches the jitter
+once. The SQL kernels are also held at the ConvNeXt-L argfile's decoder
+(B 16, N 160x512, Q 64, E 32, D 64).
 """
 
 import dataclasses
@@ -85,6 +90,7 @@ SHAPES = [
     (2, 16, 64, 128, 128, 128),   # the largest E the kernels take
     (2, 16, 128, 16, 32, 24),     # tests/test_sql_kernel.py's shape
     (1, 3, 5, 1, 8, 1),           # one query, one bin, 15 pixels
+    (16, 160, 512, 64, 32, 64),   # the ConvNeXt-L argfile's decoder at batch 16
 ]
 
 
@@ -738,3 +744,74 @@ def test_finetune_step_launches_each_sql_kernel_once(dev):
         assert made == [int(use_kernels)] * 4, made
     assert all(torch.isfinite(torch.tensor(losses)))
     assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1]), losses
+
+
+# the two other KITTI models' training steps at a small size (64x128, batch
+# 2, bf16, dropout off; random weights): the ConvNeXt Unet with the stereo
+# frame (frames 0 -1 1 s: three warps and three SSIM sources) and the
+# EfficientNet-B5 model at its full trunk
+BACKBONE_ARGS = {
+    "convnext": ["--backbone", "convnext_atto", "--dec_channels", "64", "48", "32", "24",
+                 "--model_dim", "32", "--patch_size", "4", "--query_nums", "64",
+                 "--dim_out", "64", "--use_stereo", "--diff_lr"],
+    "effb5": ["--backbone", "eff_b5", "--num_features", "256", "--model_dim", "32",
+              "--patch_size", "4", "--query_nums", "64", "--dim_out", "128"],
+}
+
+
+def _backbone_batch(dev, opt):
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n = len(opt.all_frame_ids)
+    color = torch.rand(2, n, 64, 128, 3, device=dev, generator=gen)
+    k = torch.tensor([[74.24, 0, 64, 0], [0, 122.88, 32, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                     device=dev).expand(2, 4, 4).contiguous()
+    batch = {"color": color, "color_aug": color, "K": k, "inv_K": torch.linalg.inv(k)}
+    if opt.use_stereo:
+        batch["stereo_T"] = torch.eye(4, device=dev).expand(2, 4, 4).clone()
+        batch["stereo_T"][:, 0, 3] = 0.1
+    return batch
+
+
+@pytest.mark.parametrize("name", sorted(BACKBONE_ARGS))
+def test_backbone_step_launches_and_agrees_with_the_plain_step(dev, name):
+    """One forward and backward through the kernels launches each SQL, SSIM
+    kernel once and the border warp and its backward once a source; its
+    loss agrees with the plain route's to the flagship step's 1e-2; an
+    augmented train step launches the jitter once, with a finite loss."""
+    from sfmnext_tpu_torch.training import pipeline
+    from sfmnext_tpu_torch.training.step import make_optimizer, make_train_step
+
+    base = parse_options(BACKBONE_ARGS[name] + ["--height", "64", "--width", "128"])
+    batch = _backbone_batch(dev, base)
+    n_src = len(base.all_frame_ids) - 1
+    wrappers = {"sql": (sql_kernel.sql_summary, sql_kernel.sql_depth, sql_kernel.sql_summary_bwd,
+                        sql_kernel.sql_depth_bwd),
+                "ssim": (ssim_kernel.ssim_fwd, ssim_kernel.ssim_ident_min, ssim_kernel.ssim_bwd)}
+
+    def launched():
+        return ([fn.launches for group in wrappers.values() for fn in group]
+                + [warp_kernel.warp_fwd.launches["border"],
+                   warp_kernel.warp_bwd.launches["border"]])
+
+    losses = []
+    for use_kernels in (True, False):
+        opt = dataclasses.replace(base, use_pallas=use_kernels)
+        models = build_models(opt, dev, train=True)
+        for m in models.depth.modules():  # dropout off
+            if isinstance(m, (torch.nn.Dropout, torch.nn.MultiheadAttention)):
+                m.eval()
+        before = launched()
+        total, _ = pipeline.forward(models, batch, opt)
+        total.backward()
+        torch.cuda.synchronize()
+        made = [a - b for a, b in zip(launched(), before)]
+        assert made == ([1] * 7 + [n_src] * 2 if use_kernels else [0] * 9), made
+        losses.append(total.item())
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1]), losses
+
+    step = make_train_step(base, models, *make_optimizer(base, models, 10), augment=True)
+    jitters = jitter_kernel.color_jitter.launches
+    loss = step(batch, torch.Generator(device=dev).manual_seed(0))["loss"].item()
+    assert jitter_kernel.color_jitter.launches == jitters + 1
+    assert torch.isfinite(torch.tensor(loss))

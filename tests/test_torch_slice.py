@@ -77,8 +77,9 @@ def test_cli_writes_depth_png_and_colormap(tmp_path):
 
 
 def test_port_runs_without_jax():
-    """Serving, one augmented training step with the SSIM loss and the
-    indoor pipeline import nothing of JAX or the JAX package."""
+    """Serving, one augmented training step with the SSIM loss, the
+    indoor pipeline and the ConvNeXt-Unet and EfficientNet-B5 encoders
+    import nothing of JAX or the JAX package."""
     script = (
         "import sys, types, numpy as np, torch\n"
         "from sfmnext_tpu_torch.config import parse_options\n"
@@ -104,6 +105,10 @@ def test_port_runs_without_jax():
         "loss = float(step(batch, torch.Generator().manual_seed(0))['loss'])\n"
         "assert np.isfinite(loss), loss\n"
         "import sfmnext_tpu_torch.training.indoor\n"
+        "from sfmnext_tpu_torch.models import convnext, efficientnet, unet\n"
+        "from sfmnext_tpu_torch.utils import imagenet_init, jax_weights, torch_export\n"
+        "unet.Unet('convnext_atto', 16, (32, 24, 16, 8))(torch.zeros(1, 3, 32, 64))\n"
+        "efficientnet.BaseEncoderDecoder(64, 16)(torch.zeros(1, 3, 32, 64))\n"
         "loaded = [m for m in sys.modules\n"
         "          if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sfmnext_tpu')]\n"
         "assert not loaded, loaded\n"
