@@ -2,8 +2,8 @@
 """Drive the PyTorch port's SQLdepth inference path, its flagship
 self-supervised training step, its --avg_reprojection variant, the
 indoor training step, the Trainer, the evaluation, metric finetuning
-with its evaluation, and the ConvNeXt-L (stereo) and EfficientNet-B5
-models on one CUDA card.
+with its evaluation, the ConvNeXt-L (stereo), EfficientNet-B5 and Lite
+models, and the pose networks and the predictive mask on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -149,10 +149,27 @@ Phases, one line or a few each; any failure raises and exits non-zero:
  13. the ConvNeXt-L depthwise 7x7 convolutions (each stage's, bf16, batch
      16), timed in channels-last and in NCHW memory, and the whole
      encoder's forward + backward (channels-last);
- 14. one JSON line of kernel results (launches per path, the Trainer's
+ 14. lite: the same as phase 11 at args_files/hisfog/kitti/
+     resnet18_lite_192x640.txt (the paper's Lite model: ResNet-18 +
+     DecoderBN(256), model_dim 128, patch 12, 120 queries, 128 bins, FFN
+     512, 192x640, batch 12, PoseCNN pairs; a step launches as phase 6's);
+ 15. pose_mask: at the same argfile and batch, through make_train_step
+     with augmentation, a warm-up and 3 steps of each route: the separate
+     ResNet-18 pose net over pairs and over all frames, the shared
+     PoseDecoder over pairs and over all frames (every temporal frame
+     through the depth encoder in one batch), the PoseCNN over all frames,
+     and --predictive_mask --disable_automasking; exact launches (the pose
+     routes as phase 6's step; the mask route the SSIM forward and its
+     backward once, no identity min or identity stack), finite losses, the
+     pose net's, pose encoder's and mask's parameters moving, each route's
+     median step; the mask route's kernel step held against its plain
+     step as in phase 11 (the mask's gradient as the pose's); with
+     --profile, a torch.profiler breakdown of two more steps of each route;
+ 16. one JSON line of kernel results (launches per path, the Trainer's
      as launches_trainer, the evaluation's as launches_eval, finetuning's
-     as launches_finetune, the two models' as launches_convnext and
-     launches_effb5), then the result line.
+     as launches_finetune, the three models' as launches_convnext,
+     launches_effb5 and launches_lite, the pose and mask routes' as
+     launches_pose_mask), then the result line.
 Without a visible CUDA card it exits 1 and prints no result. It imports
 nothing of JAX and nothing of the JAX package (sfmnext_tpu).
 """
@@ -290,16 +307,35 @@ VAL_LAUNCHES = launches(sql_summary=1, sql_depth=1, warp_border=2, ssim_fwd=1, s
 # with its coordinate backward, a third source to the SSIM stack and the
 # identity min, and a fourth frame to the one jitter launch
 STEREO_STEP_LAUNCHES = {**STEP_LAUNCHES, "warp_border": 3, "warp_border_bwd": 3}
-# the paper's other two KITTI models, each through the Trainer at its
+# the paper's other three KITTI models, each through the Trainer at its
 # argfile's full width and batch: tag -> (argfile, its (backbone, batch,
-# patch, query_nums, dim_out), a step's launches)
+# patch, query_nums, dim_out, (height, width)), a step's launches)
+LITE_ARGFILE = ROOT / "args_files" / "hisfog" / "kitti" / "resnet18_lite_192x640.txt"
 BACKBONES = {
     "convnext": (ROOT / "args_files" / "hisfog" / "kitti" / "cvnXt_L_320x1024.txt",
-                 ("convnext_large", 16, 32, 64, 64), STEREO_STEP_LAUNCHES),
+                 ("convnext_large", 16, 32, 64, 64, (320, 1024)), STEREO_STEP_LAUNCHES),
     "effb5": (ROOT / "args_files" / "hisfog" / "kitti" / "effb5_320x1024.txt",
-              ("eff_b5", 6, 20, 128, 128), STEP_LAUNCHES),
+              ("eff_b5", 6, 20, 128, 128, (320, 1024)), STEP_LAUNCHES),
+    # the paper's Lite model: ResNet-18 + DecoderBN(256), the 512-wide FFN
+    "lite": (LITE_ARGFILE, ("resnet18_lite", 12, 12, 120, 128, (192, 640)), STEP_LAUNCHES),
 }
 BACKBONE_STEPS = 5  # after one warm-up step
+# the pose nets and the predictive mask at the Lite argfile, each route a
+# warm-up and POSE_MASK_STEPS steps through make_train_step (augmentation on):
+# route -> its flags. The pose routes launch as a flagship step; the mask
+# route (--disable_automasking) takes the SSIM maps through
+# ssim_kernel.reprojection_losses (#9 and its backward #10) and never the
+# identity min (#11) or the identity stack (#8)
+POSE_MASK_ROUTES = {
+    "separate_resnet pairs": ["--pose_model_type", "separate_resnet"],
+    "separate_resnet all": ["--pose_model_type", "separate_resnet", "--pose_model_input", "all"],
+    "shared pairs": ["--pose_model_type", "shared"],
+    "shared all": ["--pose_model_type", "shared", "--pose_model_input", "all"],
+    "posecnn all": ["--pose_model_input", "all"],
+    "predictive_mask": ["--predictive_mask", "--disable_automasking"],
+}
+POSE_MASK_STEPS = 3
+MASK_STEP_LAUNCHES = {**STEP_LAUNCHES, "ssim_ident_min": 0}
 LAYOUT_RUNS = 5  # the ConvNeXt encoder's forward and backward, timed
 TRAIN_ARGS = [str(ARGFILE)]  # batch 8, bf16, SSIM 0.85, automasking
 # the Trainer at the flagship argfile: 2 epochs of 4 steps, a log (and one val
@@ -375,6 +411,11 @@ STEP_GRAD_RTOL = {"encoder": 5e-2, "depth": 5e-2, "pose": 5e-2}
 # (read 9.7e-3 to 1.1e-2 and 4.5e-3) and keep 5e-2
 STEP_F32_LOSS_RTOL = 1e-5
 STEP_F32_GRAD_RTOL = {"encoder": 5e-2, "depth": 5e-2, "pose": 5e-3}
+# the predictive mask, like the pose net, is reached by the photometric loss
+# alone: in a float32 loss its gradient to the pose's 5e-3 (read 1.96e-4 on
+# an H100 at the lite argfile), in the bf16 loss held as the pose's
+# (compare_backbone_steps)
+MASK_F32_GRAD_RTOL = 5e-3
 # an indoor kernel micro-step vs a plain one (compare_indoor_steps; its
 # photometric loss is plain float32 either way). float32: only the warps
 # differ; read on an H100: loss 6.1e-8, encoder 1.6e-3, depth 6.2e-6, pose
@@ -1280,15 +1321,16 @@ def compare_steps(dev, opt, batch):
 
 
 def compare_backbone_steps(dev, opt, batch, tag):
-    """``compare_steps`` for the two models' phases: the kernel and the
-    plain step, in the bf16 and the float32 loss dtype, on the batch
-    augmented once with fixed draws, held to the flagship's limits, but
-    for the bf16 pose gradient. There the plain route rounds the SSIM
-    products to bf16 where the kernels keep float32 (ROADMAP.md §3, "bf16
-    SSIM products"), and the pose net, which only the photometric loss
-    reaches, carries that rounding most: the kernel step's pose gradient
-    must lie within the flagship's 5e-2 of the float32-loss plain step's,
-    or no farther from it than the bf16 plain step's own."""
+    """``compare_steps`` for the models' phases: the kernel and the plain
+    step, in the bf16 and the float32 loss dtype, on the batch augmented
+    once with fixed draws, held to the flagship's limits (the predictive
+    mask's gradient, where the bundle has one, to the pose's), but for the
+    bf16 gradients of the pose net and the mask. There the plain route
+    rounds the SSIM products to bf16 where the kernels keep float32
+    (ROADMAP.md §3, "bf16 SSIM products"), and the nets that only the
+    photometric loss reaches carry that rounding most: the kernel step's
+    gradient must lie within the flagship's 5e-2 of the float32-loss plain
+    step's, or no farther from it than the bf16 plain step's own."""
     b = opt.batch_size
     order, factors, _ = augment.jitter_params(torch.Generator(device=dev).manual_seed(1), b)
     batch = augment.apply_augmentation(batch, torch.arange(b, device=dev) % 2 == 0,
@@ -1299,22 +1341,27 @@ def compare_backbone_steps(dev, opt, batch, tag):
         for route in ("kernel", "plain"):
             steps[route, loss_dtype] = one_step(dev, o, batch, pipeline.forward, route == "kernel")
             torch.cuda.empty_cache()
+    photometric = [k for k in ("pose", "predictive_mask") if k in steps["plain", "float32"][1]]
+    f32_tol = {**STEP_F32_GRAD_RTOL, "predictive_mask": MASK_F32_GRAD_RTOL}
     check_step_agreement(tag, "kernel step vs plain step, loss dtype float32",
                          steps["kernel", "float32"][0], steps["plain", "float32"][0],
                          *rel_errors(steps["kernel", "float32"], steps["plain", "float32"]),
-                         STEP_F32_LOSS_RTOL, STEP_F32_GRAD_RTOL)
-    reference = steps["plain", "float32"]
-    pose_k = rel_errors(steps["kernel", "auto"], reference)[1]["pose"]
-    pose_p = rel_errors(steps["plain", "auto"], reference)[1]["pose"]
+                         STEP_F32_LOSS_RTOL,
+                         {k: f32_tol[k] for k in ("encoder", "depth", *photometric)})
     check_step_agreement(tag, "kernel step vs plain step, loss dtype auto",
                          steps["kernel", "auto"][0], steps["plain", "auto"][0],
                          *rel_errors(steps["kernel", "auto"], steps["plain", "auto"]),
                          STEP_LOSS_RTOL, {k: STEP_GRAD_RTOL[k] for k in ("encoder", "depth")})
-    limit = max(STEP_GRAD_RTOL["pose"], pose_p)
-    print(f"[{tag}] the bf16 steps' pose gradient against the float32-loss plain step's: "
-          f"kernel {pose_k:.3e}, plain {pose_p:.3e} (the kernel's limit {limit:.3e})", flush=True)
-    require(pose_k <= limit, "the kernel step's bf16 pose gradient is farther from the float32 "
-                             "step's than the flagship's limit and the plain step's")
+    reference = steps["plain", "float32"]
+    for name in photometric:
+        err_k = rel_errors(steps["kernel", "auto"], reference)[1][name]
+        err_p = rel_errors(steps["plain", "auto"], reference)[1][name]
+        limit = max(STEP_GRAD_RTOL["pose"], err_p)
+        print(f"[{tag}] the bf16 steps' {name} gradient against the float32-loss plain "
+              f"step's: kernel {err_k:.3e}, plain {err_p:.3e} (the kernel's limit {limit:.3e})",
+              flush=True)
+        require(err_k <= limit, f"the kernel step's bf16 {name} gradient is farther from the "
+                                "float32 step's than the flagship's limit and the plain step's")
 
 
 def drive_avg_step(dev):
@@ -1838,8 +1885,9 @@ def backbone_batch(opt):
 
 
 def drive_backbone(dev, smi, tag, profile=False):
-    """Phases 11 and 12: the ConvNeXt-L Unet (stereo) or the EfficientNet-B5
-    model at its argfile's full width and batch (--weights_init scratch),
+    """Phases 11, 12 and 14: the ConvNeXt-L Unet (stereo), the
+    EfficientNet-B5 model or the Lite model at its argfile's full width and
+    batch (--weights_init scratch),
     through training/trainer.Trainer on a synthetic batch, augmentation on:
     a warm-up step and BACKBONE_STEPS more, each with its losses read; the
     loss finite, parameters and BatchNorm statistics moved, exactly the
@@ -1850,7 +1898,7 @@ def drive_backbone(dev, smi, tag, profile=False):
     (``compare_backbone_steps``). Returns the launch counts of the
     Trainer's steps and the serving forwards. ``profile``: a
     torch.profiler breakdown of two more steps after the counted ones."""
-    argfile, (backbone, b, patch, q, d), step_launches = BACKBONES[tag]
+    argfile, (backbone, b, patch, q, d, hw), step_launches = BACKBONES[tag]
     run_dir = ROOT / "runs" / f"chip_smoke_{tag}"
     shutil.rmtree(run_dir, ignore_errors=True)
     opt = parse_options([str(argfile), "--weights_init", "scratch", "--log_dir", str(run_dir),
@@ -1858,7 +1906,7 @@ def drive_backbone(dev, smi, tag, profile=False):
                          "--log_frequency", "1", "--save_frequency", "1000"])
     got = (opt.backbone, opt.batch_size, opt.patch_size, opt.query_nums, opt.dim_out,
            opt.height, opt.width)
-    require(got == (backbone, b, patch, q, d, *HW_TRAIN), f"unexpected {tag} config {got}")
+    require(got == (backbone, b, patch, q, d, *hw), f"unexpected {tag} config {got}")
     batch = backbone_batch(opt)
     torch.cuda.empty_cache()
     trainer = Trainer(opt, [batch] * (1 + BACKBONE_STEPS), None)
@@ -1948,6 +1996,66 @@ def drive_backbone(dev, smi, tag, profile=False):
     dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items() if k != "depth_gt"}
     compare_backbone_steps(dev, opt, dev_batch, tag)
     return {k: made[k] + served[k] for k in made}
+
+
+def drive_pose_mask(dev, smi, profile=False):
+    """Phase 15: every route of POSE_MASK_ROUTES at the Lite argfile's full
+    width and batch (seeded weights, the synthetic batch, flip + ColorJitter
+    on the card): a warm-up step and POSE_MASK_STEPS more through
+    make_train_step, each with exactly its launches; finite losses; the
+    pose net's, the pose encoder's and the mask's first and last
+    parameters moved, where the bundle has them; the median step. Then the
+    mask route's kernel step against its plain step
+    (``compare_backbone_steps``). Returns the launch counts of the steps.
+    ``profile``: a torch.profiler breakdown of two more steps of each route
+    after its counted ones."""
+    made = launches()
+    batch = None
+    for route, flags in POSE_MASK_ROUTES.items():
+        opt = parse_options([str(LITE_ARGFILE), "--weights_init", "scratch", *flags])
+        if batch is None:
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in backbone_batch(opt).items()
+                     if k != "depth_gt"}
+        models = build_models(opt, dev, train=True)
+        step = make_train_step(opt, models, *make_optimizer(opt, models, steps_per_epoch=1000),
+                               augment=True)
+        watched = {f"{name}.{pname}": p for name in ("pose_encoder", "pose", "predictive_mask")
+                   if name in models.modules()
+                   for pname, p in (list(models.modules()[name].named_parameters())[0],
+                                    list(models.modules()[name].named_parameters())[-1])}
+        before = {k: v.detach().clone() for k, v in watched.items()}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        step(batch, gen)  # warm-up
+        torch.cuda.synchronize()
+        want = MASK_STEP_LAUNCHES if opt.predictive_mask else STEP_LAUNCHES
+        times, losses = [], []
+        for _ in range(POSE_MASK_STEPS):
+            zero_counts()
+            t0 = time.perf_counter()
+            losses.append(float(step(batch, gen)["loss"]))  # syncs
+            times.append(time.perf_counter() - t0)
+            got = counts()
+            require(got == want, f"[pose_mask] a {route} step launched {got}, not {want}")
+            made = {k: made[k] + got[k] for k in made}
+        require(all(np.isfinite(losses)), f"[pose_mask] {route}: losses {losses}")
+        moved = {k: float((v.detach() - before[k]).abs().max()) for k, v in watched.items()}
+        require(all(m > 0 for m in moved.values()),
+                f"[pose_mask] {route}: parameters did not move: {moved}")
+        med = statistics.median(times)
+        print(f"[pose_mask] {route} ({' '.join(flags)}; modules {list(models.modules())}): "
+              f"losses {[round(x, 6) for x in losses]}, median step {med * 1e3:.2f} ms over "
+              f"{POSE_MASK_STEPS} steps ({[round(t * 1e3, 2) for t in times]} ms), "
+              f"{opt.batch_size / med:.2f} images/s; launches per step "
+              f"{ {k: v for k, v in want.items() if v} }; moved by up to {moved}; {smi}",
+              flush=True)
+        if profile:
+            profile_steps(dev, step, batch, gen, f"{route} steps",
+                          f"pose_mask_{route.replace(' ', '_')}_trace.json")
+        del models, step, watched, before
+        torch.cuda.empty_cache()
+        if opt.predictive_mask:
+            compare_backbone_steps(dev, opt, batch, "pose_mask")
+    return made
 
 
 def convnext_layouts(dev, smi):
@@ -2104,9 +2212,11 @@ def main() -> int:
     paths["trainer"] = drive_trainer(dev, smi, bare_step)
     paths["eval"] = drive_eval(dev, smi, profile)
     paths["finetune"] = drive_finetune(dev, smi, profile)
-    for tag in BACKBONES:
+    for tag in ("convnext", "effb5"):
         paths[tag] = drive_backbone(dev, smi, tag, profile)
     convnext_layouts(dev, smi)
+    paths["lite"] = drive_backbone(dev, smi, "lite", profile)
+    paths["pose_mask"] = drive_pose_mask(dev, smi, profile)
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax", "sfmnext_tpu"))
     require(not imported, f"JAX or the JAX package was imported: {imported}")

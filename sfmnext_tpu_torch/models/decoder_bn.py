@@ -1,7 +1,8 @@
-"""BN U-decoder over the ResNet pyramid + the combined encoder-decoder.
+"""BN U-decoder over the ResNet pyramid + the combined encoder-decoders.
 
 Counterpart of ``sfmnext_tpu/models/decoder_bn.py`` (UpSampleBN, DecoderBN,
-ResnetEncoderDecoder), with the reference's state-dict names
+ResnetEncoderDecoder, and the paper's Lite model LiteResnetEncoderDecoder:
+ResNet-18 and DecoderBN(256)), with the reference's state-dict names
 (``decoder.up1._net.0``, ...). The reference quirk is kept: the bottleneck
 1x1 ``conv2`` has padding 1, so it sees a zero ring around the 1/32 map.
 Output: ``model_dim`` channels at 1/2 input resolution, NCHW.
@@ -83,5 +84,17 @@ class ResnetEncoderDecoder(nn.Module):
         self.encoder.init_weights(generator)
         self.decoder.init_weights(generator)
 
-    def forward(self, x):
-        return self.decoder(self.encoder(x))
+    def forward(self, x, return_pyramid: bool = False):
+        """``return_pyramid``: (features, the encoder's five maps), for the
+        predictive mask (reference trainer.py:290-291)."""
+        pyramid = self.encoder(x)
+        out = self.decoder(pyramid)
+        return (out, pyramid) if return_pyramid else out
+
+
+class LiteResnetEncoderDecoder(ResnetEncoderDecoder):
+    """ResNet-18 + the slim DecoderBN(256) (reference
+    networks/lite_res_encoder.py:148-157); the same state-dict names."""
+
+    def __init__(self, model_dim: int = 128, dtype=torch.float32):
+        super().__init__(18, 256, model_dim, dtype=dtype)

@@ -126,7 +126,8 @@ class ResNetEncoder(nn.Module):
         super().__init__()
         if variants:
             raise NotImplementedError(
-                f"ResNet options {sorted(variants)} are not ported yet")
+                f"ResNet options {sorted(variants)} are not ported yet: the ResNet "
+                "variants come with the Unet zoo's ResNet family, ROADMAP.md queue 1 item 12")
         if num_layers not in RESNET_SPECS:
             raise NotImplementedError(
                 f"ResNet-{num_layers}: the port has {sorted(RESNET_SPECS)}")

@@ -71,7 +71,20 @@ def forward_indoor(models, batch, opt, generator=None):
     Args, returns: as ``pipeline.forward``; ``generator`` draws the
     identity losses' tie-break noise, [1,H,W,n_sources] (or [1,H,W,1]
     under ``--avg_reprojection`` with the occlusion loss).
+
+    Poses come from the PoseCNN on frame pairs only. The JAX package's
+    indoor step calls ``predict_poses`` without ``opt`` or BatchNorm
+    statistics, and with any other pose net or ``--pose_model_input all``
+    it fails (the separate ResNet-18 finds no BatchNorm statistics, the
+    shared PoseDecoder and the all-frames PoseCNN receive frame pairs of
+    the wrong width); this step raises there. A ``--predictive_mask`` net
+    is built and, as in the JAX indoor step, not used.
     """
+    if opt.pose_model_type != "posecnn" or opt.num_pose_frames != 2:
+        raise NotImplementedError(
+            f"the indoor step with --pose_model_type {opt.pose_model_type} --pose_model_input "
+            f"{opt.pose_model_input}: the JAX package's forward_indoor fails there too "
+            "(ROADMAP.md §3); it trains with the PoseCNN on frame pairs only")
     frame_ids = [f for f in opt.all_frame_ids if f != "s"]
     color = batch["color"]
     b, _, h, w, _ = color.shape

@@ -1,11 +1,12 @@
 """The self-supervised forward and loss. Counterpart of
 ``sfmnext_tpu/training/pipeline.py`` (reference trainer.py:266-549):
-``predict_poses`` in its PoseCNN batched-pairs branch and ``forward``
-(photometric stack with SSIM or, under ``--no_ssim``, L1 alone;
-min-reprojection with automasking, or its ``--avg_reprojection`` variant;
-edge-aware smoothness) and ``train_depth_metrics`` (the train-time depth
-metrics against ground truth). The indoor pipeline is
-``training/indoor.py``.
+``predict_poses`` (the PoseCNN, the separate ResNet-18 and the shared
+encoder's pose nets, over frame pairs or all frames at once) and
+``forward`` (photometric stack with SSIM or, under ``--no_ssim``, L1
+alone; min-reprojection with automasking, or its ``--avg_reprojection``
+variant; the ``--predictive_mask`` weighting; edge-aware smoothness) and
+``train_depth_metrics`` (the train-time depth metrics against ground
+truth). The indoor pipeline is ``training/indoor.py``.
 
 The batch is the JAX package's: ``color`` and ``color_aug`` [B,F,H,W,3]
 with F following ``opt.all_frame_ids``, ``K`` and ``inv_K`` [B,4,4] and,
@@ -41,33 +42,72 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def predict_poses(models, batch, frame_ids, opt, pose_frames=None):
-    """PoseCNN over the temporally ordered (earlier, later) pairs of the
-    target with each source, all pairs in one batched forward.
+def predict_poses(models, batch, frame_ids, opt, pose_frames=None, shared_feats=None):
+    """Poses of the sources against the target (JAX pipeline.py:45-180,
+    reference trainer.py:301-361).
+
+    Pairs (``--pose_model_input pairs``): each temporal source with the
+    target, in temporal order (earlier frame first). The PoseCNN takes all
+    pairs in one batched forward (it has no BatchNorm); the separate
+    ResNet-18 takes one forward a pair, in ``frame_ids[1:]`` order, so its
+    BatchNorm statistics update once a pair in that order, as the JAX
+    package threads them; the shared PoseDecoder takes the depth encoder's
+    features of the pair (``shared_feats``). A past frame's transform is
+    inverted (trainer.py:324-331).
+
+    All frames (``--pose_model_input all``): one forward over every
+    temporal frame predicts a pose for each source, with no inversion of
+    past frames (a reference quirk, trainer.py:355-360, kept).
 
     ``pose_frames`` [B,F,H,W,3] replaces ``batch["color_aug"]`` as the
-    net's input (the indoor pipeline feeds the raw target and the rectified
+    nets' input (the indoor pipeline feeds the raw target and the rectified
     references, trainer_indoor.py:439-444).
-    Returns {frame_id: (axisangle [B,3], translation [B,3], invert)}; a
-    past frame's transform is inverted (trainer.py:324-331).
+    Returns {frame_id: (axisangle [B,3], translation [B,3], invert)}.
     """
-    if opt.pose_model_type != "posecnn" or opt.num_pose_frames != 2:
-        raise NotImplementedError(
-            "the port predicts poses with the PoseCNN on frame pairs only")
     color_aug = batch["color_aug"] if pose_frames is None else pose_frames
+    dev = color_aug.device
+    shared = opt.pose_model_type == "shared"
+
+    def net(frames):  # frames stacked on channels, NHWC
+        with autocast(models, dev):
+            if models.pose_encoder is not None:
+                return models.pose([models.pose_encoder(_nchw(frames))])
+            return models.pose(_nchw(frames))
+
+    def decode_shared(frame_ids_in):
+        with autocast(models, dev):
+            return models.pose([[shared_feats[i]] for i in frame_ids_in])
+
+    if opt.num_pose_frames != 2:  # all frames at once
+        temporal = [f_i for f_i in frame_ids if f_i != "s"]
+        if shared:
+            axisangle, translation = decode_shared(temporal)
+        else:
+            axisangle, translation = net(torch.cat(
+                [color_aug[:, frame_ids.index(f_i)] for f_i in temporal], dim=-1))
+        return {f_i: (axisangle[:, i, 0], translation[:, i, 0], False)
+                for i, f_i in enumerate(temporal[1:])}
+
     srcs = [(idx, f_i) for idx, f_i in enumerate(frame_ids[1:], start=1) if f_i != "s"]
-    pairs = [
-        torch.cat([color_aug[:, idx], color_aug[:, 0]] if f_i < 0
-                  else [color_aug[:, 0], color_aug[:, idx]], dim=-1)
-        for idx, f_i in srcs
-    ]
-    with autocast(models, color_aug.device):
-        axisangle, translation = models.pose(_nchw(torch.cat(pairs, dim=0)))
-    b = color_aug.shape[0]
-    return {
-        f_i: (axisangle[j * b:(j + 1) * b, 0, 0], translation[j * b:(j + 1) * b, 0, 0], f_i < 0)
-        for j, (_, f_i) in enumerate(srcs)
-    }
+    order = {f_i: ([idx, 0] if f_i < 0 else [0, idx]) for idx, f_i in srcs}
+
+    def pair(f_i):
+        return torch.cat([color_aug[:, i] for i in order[f_i]], dim=-1)
+
+    if opt.pose_model_type == "posecnn":
+        axisangle, translation = net(torch.cat([pair(f_i) for _, f_i in srcs], dim=0))
+        b = color_aug.shape[0]
+        return {f_i: (axisangle[j * b:(j + 1) * b, 0, 0], translation[j * b:(j + 1) * b, 0, 0],
+                      f_i < 0)
+                for j, (_, f_i) in enumerate(srcs)}
+    poses = {}
+    for _, f_i in srcs:
+        if shared:
+            axisangle, translation = decode_shared([f_i, 0] if f_i < 0 else [0, f_i])
+        else:
+            axisangle, translation = net(pair(f_i))
+        poses[f_i] = (axisangle[:, 0, 0], translation[:, 0, 0], f_i < 0)
+    return poses
 
 
 def forward(models, batch, opt, generator=None):
@@ -85,24 +125,39 @@ def forward(models, batch, opt, generator=None):
       (total loss, {"outputs", "metrics"}); BatchNorm running statistics
       update in place.
     """
-    if opt.predictive_mask:
-        raise NotImplementedError("--predictive_mask is not ported yet")
     frame_ids = opt.all_frame_ids
     color = batch["color"]
     dev = color.device
     b, _, h, w, _ = color.shape
+    color_aug = batch["color_aug"]
 
-    # 1. depth from the augmented target frame (trainer.py:286-288)
+    # 1. depth from the augmented target frame (trainer.py:286-288). With
+    # the shared pose net every temporal frame goes through the depth
+    # encoder as one batch (BatchNorm statistics over the whole stack) and
+    # the depth decoder sees the target's part; the predictive mask reads
+    # the encoder's pyramid
+    shared_feats = pyramid = None
     with autocast(models, dev):
-        dec = models.depth(models.encoder(_nchw(batch["color_aug"][:, 0])))
+        if opt.pose_model_type == "shared" and models.pose is not None:
+            temporal = [f_i for f_i in frame_ids if f_i != "s"]
+            stacked = torch.cat([color_aug[:, frame_ids.index(f_i)] for f_i in temporal])
+            feats = models.encoder(_nchw(stacked)).chunk(len(temporal))
+            shared_feats = dict(zip(temporal, feats))
+            feats = shared_feats[0]
+        elif models.predictive_mask is not None:
+            feats, pyramid = models.encoder(_nchw(color_aug[:, 0]), return_pyramid=True)
+        else:
+            feats = models.encoder(_nchw(color_aug[:, 0]))
+        dec = models.depth(feats)
     depth_half = dec["disp0"]  # [B,1,H/2,W/2] float32: depth, a reference quirk
     depth = resize_bilinear(depth_half, (h, w), align_corners=False).permute(0, 2, 3, 1)
     outputs = {"depth": depth, "bin_centers": dec["bin_centers"]}
 
     # 2. poses (no pose net for --frame_ids 0 --use_stereo); PoseCNN
     # translations scale by the mean inverse depth without --use_stereo
-    # (trainer.py:412-421)
-    poses = {} if models.pose is None else predict_poses(models, batch, frame_ids, opt)
+    # (trainer.py:412-421), the other pose nets' do not
+    poses = {} if models.pose is None else predict_poses(
+        models, batch, frame_ids, opt, shared_feats=shared_feats)
     mean_inv_depth = (1.0 / depth).mean(dim=(1, 2, 3))
 
     # 3. warp every source frame into the target view; the stereo frame
@@ -117,7 +172,7 @@ def forward(models, batch, opt, generator=None):
             T = batch["stereo_T"]
         else:
             axisangle, translation, invert = poses[f_i]
-            if not opt.use_stereo:
+            if opt.pose_model_type == "posecnn" and not opt.use_stereo:
                 translation = translation * mean_inv_depth[:, None]
             T = geometry.transformation_from_parameters(axisangle, translation, invert=invert)
         src = color[:, idx].contiguous()  # the warp kernel's [B,H,W,3] layout
@@ -131,6 +186,7 @@ def forward(models, batch, opt, generator=None):
     use_ssim = not opt.no_ssim
     fused = use_ssim and opt.use_pallas
     automasking = not opt.disable_automasking
+    mask_loss = 0.0
     if fused and automasking and not opt.avg_reprojection:
         # the SSIM stacks, the identity stack, the noise and the min in the
         # kernels; the identities' maps never reach device memory
@@ -157,6 +213,14 @@ def forward(models, batch, opt, generator=None):
             if automasking:
                 with torch.no_grad():
                     ident = stack(ident_srcs)
+        if pyramid is not None:
+            # the predictive mask (needs --disable_automasking) weights each
+            # source's map, and 0.2 * BCE(mask, 1) keeps it from collapsing
+            # to 0 (trainer.py:495-507)
+            pmask = models.predictive_mask(pyramid)[("disp", 0)].permute(0, 2, 3, 1)
+            outputs["predictive_mask"] = pmask  # [B,H,W,n_sources]
+            reproj = reproj * pmask
+            mask_loss = 0.2 * (-torch.log(pmask.clamp(1e-7, 1.0))).mean()
         to_optimise, automask = L.min_reprojection_loss(
             [reproj], [ident] if ident is not None else None, generator=generator,
             avg_reprojection=opt.avg_reprojection,
@@ -169,7 +233,7 @@ def forward(models, batch, opt, generator=None):
     norm_d = depth / (depth.mean(dim=(1, 2, 3), keepdim=True) + 1e-7)
     smooth = L.edge_aware_smoothness(
         norm_d, target, compute_dtype=None if ldt == torch.float32 else ldt)
-    total = loss + opt.disparity_smoothness * smooth
+    total = loss + opt.disparity_smoothness * smooth + mask_loss
     metrics = {"loss": total, "loss/reprojection": loss, "loss/smooth": smooth}
     return total, {"outputs": outputs, "metrics": metrics}
 

@@ -116,8 +116,10 @@ class Trainer:
             apply_weights_init(opt, self.models)
         if opt.load_pretrained_model and opt.load_pt_folder:
             self._warm_start(opt.load_pt_folder)
-        if opt.pretrained_pose:
+        if opt.pretrained_pose:  # with the separate_resnet pose encoder where there is one
             self._load_named("pose", opt.pose_net_path, "--pretrained_pose")
+            if self.models.pose_encoder is not None:
+                self._load_named("pose_encoder", opt.pose_net_path, "--pretrained_pose")
         if opt.pretrained_rectify:
             self._load_named("rectify", opt.pose_net_path, "--pretrained_rectify")
 
@@ -295,8 +297,9 @@ class Trainer:
         self.timings["val"].append(time.perf_counter() - t0)
 
     def _log_images(self, mode, batch, outputs, max_n: int = 2):
-        """Visual-debug panels: input / warped / disp / automask
-        (reference trainer.py:593-625), downsampled 2x for IO."""
+        """Visual-debug panels: input / warped / disp / automask / the
+        predictive mask of each source (reference trainer.py:593-625, JAX
+        trainer.py:439-444), downsampled 2x for IO."""
 
         def ds(a):  # device -> host, 2x downsampled
             return a[::2, ::2].float().cpu().numpy()
@@ -314,6 +317,9 @@ class Trainer:
             panels[f"disp_0/{j}"] = ds(disp)
             if "automask" in outputs:
                 panels[f"automask_0/{j}"] = ds(outputs["automask"][j])
+            mask = outputs.get("predictive_mask")  # [B,H,W,n_sources]
+            for f in range(0 if mask is None else mask.shape[-1]):
+                panels[f"predictive_mask_{f}_0/{j}"] = ds(mask[j, ..., f])
         self.writers[mode].images(self.step, panels)
 
     def _device_batch(self, batch):

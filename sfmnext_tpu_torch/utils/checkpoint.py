@@ -3,7 +3,8 @@
 One folder per ``weights_<tag>`` holds a state dict a module:
 ``encoder.pth`` (with ``height``, ``width`` and ``use_stereo`` for shape
 recovery at inference, :652-656), ``depth.pth``, ``pose.pth`` and, when the
-bundle has one, ``rectify.pth``; ``utils/jax_weights.load_reference_folder``
+bundle has them, ``pose_encoder.pth``, ``rectify.pth`` and
+``predictive_mask.pth``; ``utils/jax_weights.load_reference_folder``
 and ``test_simple`` read the first two. ``adam.pth`` holds what a resumed
 run needs to continue exactly: the optimizer (Adam's moments and step), the
 LR schedule, the step count, and the gradient accumulation's place in its

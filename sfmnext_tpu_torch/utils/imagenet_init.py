@@ -8,7 +8,9 @@ Behavioral reference:
     input frames and divides by the frame count;
   - networks/base_encoder.py:94 — gen-efficientnet ``tf_efficientnet_b5_ap``;
   - networks/Unet.py:114-117 — timm backbones (``<backbone>.pth``);
-  - networks/rectify_net.py:13-15 — a pretrained 2-image ResNet-18.
+  - networks/rectify_net.py:13-15 — a pretrained 2-image ResNet-18;
+  - the ``separate_resnet`` pose encoder: ResNet-18 over the pose frames
+    (JAX imagenet_init.py:259-266).
 
 The weights are state dicts (``resnet{N}.pth``,
 ``tf_efficientnet_b5_ap.pth``, ``convnext_*.pth``) in a local directory:
@@ -26,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from sfmnext_tpu_torch.models.resnet import ResNetEncoder
+from sfmnext_tpu_torch.training.builder import resnet_layers
 
 
 def weights_dir() -> str:
@@ -100,8 +103,9 @@ def load_imagenet_trunk(trunk: nn.Module, fname: str, rename=None) -> None:
 
 def apply_weights_init(opt, models) -> None:
     """ImageNet weights into the depth encoder's trunk (its decoder stays
-    random, as in the reference) and RectifyNet's 2-image ResNet-18.
-    No-op for ``--weights_init scratch``."""
+    random, as in the reference; ``resnet18_lite`` takes ResNet-18 whatever
+    ``--num_layers`` says), the ``separate_resnet`` pose encoder and
+    RectifyNet's 2-image ResNet-18. No-op for ``--weights_init scratch``."""
     if opt.weights_init != "pretrained":
         return
     if opt.backbone == "eff_b5":
@@ -109,7 +113,9 @@ def apply_weights_init(opt, models) -> None:
     elif opt.backbone.startswith("convnext"):
         load_imagenet_trunk(models.encoder.encoder, f"{opt.backbone}.pth", _convnext_keys)
     else:
-        load_imagenet_resnet(models.encoder.encoder, opt.num_layers)
+        load_imagenet_resnet(models.encoder.encoder, resnet_layers(opt))
+    if getattr(models, "pose_encoder", None) is not None:  # separate_resnet
+        load_imagenet_resnet(models.pose_encoder, 18, num_input_images=opt.num_pose_frames)
     if models.rectify is not None:
         load_imagenet_resnet(models.rectify.encoder, 18, num_input_images=2)
     print(f"-> ImageNet init from {weights_dir()} ({opt.backbone})")

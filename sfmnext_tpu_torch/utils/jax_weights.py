@@ -25,17 +25,25 @@ def _to_torch(sd) -> Dict[str, torch.Tensor]:
 
 def from_jax_variables(variables) -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX ``{"params", "batch_stats"}`` (arrays or numpy) -> the port's
-    state dicts ``{"encoder", "depth"[, "pose"][, "rectify"]}``, BatchNorm
-    running statistics included; the encoder a ResNet, EfficientNet-B5 or
-    ConvNeXt-Unet encoder-decoder; ``"pose"`` when the tree holds a PoseCNN,
-    ``"rectify"`` when it holds a RectifyNet."""
+    state dicts ``{"encoder", "depth"[, "pose_encoder"][, "pose"][, "rectify"]
+    [, "predictive_mask"]}``, BatchNorm running statistics included; the
+    encoder a ResNet, EfficientNet-B5 or ConvNeXt-Unet encoder-decoder;
+    ``"pose"`` a PoseCNN or a PoseDecoder, by its tree's names, with the
+    separate ResNet-18 ``"pose_encoder"`` when the tree holds one; the
+    others when the tree holds them."""
     params, stats = variables["params"], variables["batch_stats"]
     out = {
         "encoder": _to_torch(torch_export.export_encoder(params["encoder"], stats["encoder"])),
         "depth": _to_torch(torch_export.export_sql_decoder(params["depth"])),
     }
+    if "pose_encoder" in params:
+        out["pose_encoder"] = _to_torch(torch_export.export_pose_encoder(
+            params["pose_encoder"], stats["pose_encoder"]))
     if "pose" in params:
-        out["pose"] = _to_torch(torch_export.export_pose_cnn(params["pose"]))
+        out["pose"] = _to_torch(torch_export.export_pose(params["pose"]))
+    if "predictive_mask" in params:
+        out["predictive_mask"] = _to_torch(torch_export.export_predictive_mask(
+            params["predictive_mask"]))
     if "rectify" in params:
         out["rectify"] = _to_torch(torch_export.export_rectify_net(
             params["rectify"], stats["rectify"]))

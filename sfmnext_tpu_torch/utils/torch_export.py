@@ -3,8 +3,10 @@ state-dict keys, in numpy only.
 
 The port's own copy of the maps it needs from
 ``sfmnext_tpu/utils/torch_export.py`` (the ResNet, EfficientNet-B5 and
-ConvNeXt-Unet encoder-decoders, SQL decoder, PoseCNN, RectifyNet), so
-that loading JAX-trained weights imports nothing of the JAX package. The trees are nested dicts of arrays (anything ``np.asarray``
+ConvNeXt-Unet encoder-decoders, SQL decoder, PoseCNN, RectifyNet), with
+maps of its own for the trees that file does not export (the PoseDecoder,
+the separate ResNet-18 pose encoder, the predictive mask), so that loading
+JAX-trained weights imports nothing of the JAX package. The trees are nested dicts of arrays (anything ``np.asarray``
 takes); flax's ``HWIO`` convolution kernels become ``OIHW`` and dense
 kernels are transposed.
 """
@@ -227,6 +229,45 @@ def export_pose_cnn(params) -> Dict[str, np.ndarray]:
     for i in range(7):
         _put_conv(sd, f"net.{i}", params[f"conv{i}"]["Conv_0"])
     _put_conv(sd, "pose_conv", params["pose_conv"]["Conv_0"])
+    return sd
+
+
+def export_pose_decoder(params) -> Dict[str, np.ndarray]:
+    """PoseDecoder tree -> reference ``pose.pth`` keys (monodepth2's
+    ``net.<i>``: squeeze, pose_0, pose_1, pose_2)."""
+    sd: Dict[str, np.ndarray] = {}
+    for i, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
+        _put_conv(sd, f"net.{i}", params[name]["Conv_0"])
+    return sd
+
+
+def export_pose(params) -> Dict[str, np.ndarray]:
+    """Either pose head by its tree's names: a PoseCNN (``pose_conv``) or
+    a PoseDecoder (``squeeze``)."""
+    return export_pose_cnn(params) if "pose_conv" in params else export_pose_decoder(params)
+
+
+def export_pose_encoder(params, batch_stats) -> Dict[str, np.ndarray]:
+    """The separate_resnet pose encoder (a ResNetEncoder over the stacked
+    pose frames) -> reference ``pose_encoder.pth`` keys (``encoder.*``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_resnet(sd, "encoder.", params, batch_stats)
+    return sd
+
+
+def export_predictive_mask(params) -> Dict[str, np.ndarray]:
+    """PredictiveMask tree -> ``predictive_mask.pth`` keys (monodepth2's
+    decoder layout: ``decoder.<i>.conv.conv`` for the blocks upconv_4_0 ..
+    upconv_0_1, then ``decoder.<10+j>.conv`` for the heads, scales
+    ascending)."""
+    sd: Dict[str, np.ndarray] = {}
+    for j, i in enumerate(range(4, -1, -1)):
+        for k in (0, 1):
+            _put_conv(sd, f"decoder.{2 * j + k}.conv.conv",
+                      params[f"upconv_{i}_{k}"]["TorchConv_0"]["Conv_0"])
+    scales = sorted(int(name.split("_")[1]) for name in params if name.startswith("maskconv_"))
+    for j, scale in enumerate(scales):
+        _put_conv(sd, f"decoder.{10 + j}.conv", params[f"maskconv_{scale}"]["Conv_0"])
     return sd
 
 

@@ -26,7 +26,8 @@ both families from state dicts the test writes (timm's and
 gen-efficientnet's names, with heads the trunks lack) equals the JAX
 init carried across; the JAX package's initialisers from the seed's
 generator; ``--frame_ids 0 --use_stereo`` builds no pose net
-and takes a finite augmented step; an unported backbone raises; the SQL
+and takes a finite augmented step; an unported backbone raises naming
+its ROADMAP item; the SQL
 decoder's FFN width follows the JAX builder's rule.
 """
 
@@ -389,11 +390,14 @@ def test_init_follows_the_jax_initialisers():
     assert mb.bn2.momentum == 0.01 and mb.bn2.eps == 1e-3
 
 
-@pytest.mark.parametrize("backbone", ["resnet_lite", "resnet18_lite", "efficientnet_b3",
+@pytest.mark.parametrize("backbone", ["resnet50d", "densenet121", "efficientnet_b3",
                                       "regnety_040"])
 def test_unported_backbone_raises(backbone):
+    """The Unet zoo but ConvNeXt, the ResNet variants (``resnet50d``: deep
+    stem and avg-down) among it, raises naming its ROADMAP item."""
     opt = parse_options(["--backbone", backbone])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match=f"Unet backbone '{backbone}'.*ROADMAP.md queue 1 item 12"):
         build_models(opt, "cpu")
 
 

@@ -63,7 +63,12 @@ a stereo step of the ConvNeXt Unet (``convnext_atto``, frames 0 -1 1 s)
 and a step of the EfficientNet-B5 model at 64x128, batch 2, which launch
 the warps once a source; an augmented step of each launches the jitter
 once. The SQL kernels are also held at the ConvNeXt-L argfile's decoder
-(B 16, N 160x512, Q 64, E 32, D 64).
+(B 16, N 160x512, Q 64, E 32, D 64). A step of the Lite model
+(``resnet18_lite``) with the separate ResNet-18 pose net and the
+predictive mask (the SSIM forward and backward once, no identity min),
+and one with the shared pose net over all frames (every temporal frame
+through the depth encoder in one batch), launch as the flagship step
+does otherwise, and their losses agree with the plain route's to 1e-2.
 """
 
 import dataclasses
@@ -815,3 +820,55 @@ def test_backbone_step_launches_and_agrees_with_the_plain_step(dev, name):
     loss = step(batch, torch.Generator(device=dev).manual_seed(0))["loss"].item()
     assert jitter_kernel.color_jitter.launches == jitters + 1
     assert torch.isfinite(torch.tensor(loss))
+
+
+# the Lite model's pose and mask routes at a small size (64x128, batch 2,
+# bf16, dropout off; random weights)
+LITE_ARGS = ["--backbone", "resnet18_lite", "--model_dim", "32", "--patch_size", "4",
+             "--query_nums", "64", "--dim_out", "64", "--height", "64", "--width", "128"]
+POSE_MASK_ARGS = {
+    "separate_resnet-mask": ["--pose_model_type", "separate_resnet", "--predictive_mask",
+                             "--disable_automasking"],
+    "shared-all": ["--pose_model_type", "shared", "--pose_model_input", "all"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(POSE_MASK_ARGS))
+def test_pose_and_mask_steps_launch_and_agree_with_the_plain_step(dev, name):
+    """One forward and backward through the kernels launches each SQL
+    kernel, the SSIM forward and its backward once, the border warp and its
+    backward once a source, and the identity min once with automasking and
+    never under the mask; the identity stack never; the loss agrees with
+    the plain route's to 1e-2."""
+    from sfmnext_tpu_torch.training import pipeline
+
+    base = parse_options(LITE_ARGS + POSE_MASK_ARGS[name])
+    batch = _backbone_batch(dev, base)
+    wrappers = (sql_kernel.sql_summary, sql_kernel.sql_depth, sql_kernel.sql_summary_bwd,
+                sql_kernel.sql_depth_bwd, ssim_kernel.ssim_fwd, ssim_kernel.ssim_bwd,
+                ssim_kernel.ssim_ident_min, ssim_kernel.identity_losses)
+
+    def launched():
+        return ([fn.launches for fn in wrappers] + [warp_kernel.warp_fwd.launches["border"],
+                                                    warp_kernel.warp_bwd.launches["border"]])
+
+    losses = []
+    for use_kernels in (True, False):
+        opt = dataclasses.replace(base, use_pallas=use_kernels)
+        models = build_models(opt, dev, train=True)
+        for m in models.depth.modules():  # dropout off
+            if isinstance(m, (torch.nn.Dropout, torch.nn.MultiheadAttention)):
+                m.eval()
+        before = launched()
+        total, aux = pipeline.forward(models, batch, opt)
+        total.backward()
+        torch.cuda.synchronize()
+        made = [a - b for a, b in zip(launched(), before)]
+        ident_min = 0 if base.predictive_mask else 1
+        assert made == ([1] * 6 + [ident_min, 0, 2, 2] if use_kernels else [0] * 10), made
+        assert all(p.grad is not None for mod in models.modules().values()
+                   for p in mod.parameters()), name
+        losses.append(total.item())
+    assert ("predictive_mask" in aux["outputs"]) == base.predictive_mask
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1]), losses

@@ -78,8 +78,9 @@ def test_cli_writes_depth_png_and_colormap(tmp_path):
 
 def test_port_runs_without_jax():
     """Serving, one augmented training step with the SSIM loss, the
-    indoor pipeline and the ConvNeXt-Unet and EfficientNet-B5 encoders
-    import nothing of JAX or the JAX package."""
+    indoor pipeline, the ConvNeXt-Unet and EfficientNet-B5 encoders, and a
+    Lite-model step with the separate ResNet-18 pose net and the
+    predictive mask import nothing of JAX or the JAX package."""
     script = (
         "import sys, types, numpy as np, torch\n"
         "from sfmnext_tpu_torch.config import parse_options\n"
@@ -109,6 +110,15 @@ def test_port_runs_without_jax():
         "from sfmnext_tpu_torch.utils import imagenet_init, jax_weights, torch_export\n"
         "unet.Unet('convnext_atto', 16, (32, 24, 16, 8))(torch.zeros(1, 3, 32, 64))\n"
         "efficientnet.BaseEncoderDecoder(64, 16)(torch.zeros(1, 3, 32, 64))\n"
+        "from sfmnext_tpu_torch.models import pose_decoder, predictive_mask\n"
+        "opt = parse_options(['--backbone', 'resnet18_lite', '--model_dim', '16',\n"
+        "    '--patch_size', '4', '--query_nums', '16', '--dim_out', '16', '--height', '64',\n"
+        "    '--width', '96', '--compute_dtype', 'float32', '--pose_model_type',\n"
+        "    'separate_resnet', '--predictive_mask', '--disable_automasking'])\n"
+        "models = build_models(opt, 'cpu', train=True)\n"
+        "step = make_train_step(opt, models, *make_optimizer(opt, models, 10))\n"
+        "loss = float(step(batch, torch.Generator().manual_seed(0))['loss'])\n"
+        "assert np.isfinite(loss) and models.pose_encoder is not None, loss\n"
         "loaded = [m for m in sys.modules\n"
         "          if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sfmnext_tpu')]\n"
         "assert not loaded, loaded\n"
