@@ -2,15 +2,16 @@
 ``sfmnext_tpu/training/builder.py`` (``build_models`` + ``init_params``):
 the encoder by ``--backbone`` (``resnet`` / ``resnet_lite``: ResNet +
 DecoderBN; ``resnet18_lite``: the Lite model, ResNet-18 + DecoderBN(256);
-``eff_b5``: EfficientNet-B5 + DecoderBN; ``convnext*``: the ConvNeXt
-Unet), the SQL decoder (its FFN 512 wide for the lite backbones) and, for
+``eff_b5``: EfficientNet-B5 + DecoderBN; any other name: the Unet over
+that backbone, of the ConvNeXt or the ResNet family, ``models/unet.py``),
+the SQL decoder (its FFN 512 wide for the lite backbones) and, for
 training, the pose network by ``--pose_model_type`` (none for
 ``--frame_ids 0 --use_stereo``): the PoseCNN, a ResNet-18 pose encoder
 over the pose frames with a PoseDecoder (``separate_resnet``), or a
 PoseDecoder over the depth encoder's features (``shared``); then
 (``--use_rectify_net``) the RectifyNet and (``--predictive_mask``) the
-predictive mask. The other Unet backbones and the ResNet variants are not
-ported yet.
+predictive mask. The rest of the Unet zoo raises ``NotImplementedError``
+(``models/unet.py``).
 """
 
 from __future__ import annotations

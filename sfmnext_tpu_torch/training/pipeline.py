@@ -25,8 +25,12 @@ and the plain sample compute the same bilinear sample.
 
 from __future__ import annotations
 
-import torch
+import contextlib
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from sfmnext_tpu_torch.models.common import batchnorm_recompute
 from sfmnext_tpu_torch.ops import geometry, losses as L, metrics as M, ssim_kernel
 from sfmnext_tpu_torch.ops.image import resize_bilinear
 from sfmnext_tpu_torch.ops.warp import warp_frame
@@ -40,6 +44,18 @@ def autocast(models, device: torch.device):
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
+
+
+def encode(models, x: torch.Tensor, opt) -> torch.Tensor:
+    """The depth encoder's forward (for a Unet its decoder too), under an
+    activation checkpoint with ``--remat`` (JAX pipeline.py:198-206: memory
+    for a second forward in the backward). The recompute leaves the
+    BatchNorm running statistics alone, so they move once a step."""
+    if not opt.remat:
+        return models.encoder(x)
+    return checkpoint(models.encoder, x, use_reentrant=False, preserve_rng_state=True,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          batchnorm_recompute(models.encoder)))
 
 
 def predict_poses(models, batch, frame_ids, opt, pose_frames=None, shared_feats=None):
@@ -141,13 +157,13 @@ def forward(models, batch, opt, generator=None):
         if opt.pose_model_type == "shared" and models.pose is not None:
             temporal = [f_i for f_i in frame_ids if f_i != "s"]
             stacked = torch.cat([color_aug[:, frame_ids.index(f_i)] for f_i in temporal])
-            feats = models.encoder(_nchw(stacked)).chunk(len(temporal))
+            feats = encode(models, _nchw(stacked), opt).chunk(len(temporal))
             shared_feats = dict(zip(temporal, feats))
             feats = shared_feats[0]
         elif models.predictive_mask is not None:
             feats, pyramid = models.encoder(_nchw(color_aug[:, 0]), return_pyramid=True)
         else:
-            feats = models.encoder(_nchw(color_aug[:, 0]))
+            feats = encode(models, _nchw(color_aug[:, 0]), opt)
         dec = models.depth(feats)
     depth_half = dec["disp0"]  # [B,1,H/2,W/2] float32: depth, a reference quirk
     depth = resize_bilinear(depth_half, (h, w), align_corners=False).permute(0, 2, 3, 1)

@@ -13,7 +13,8 @@ Behavioral reference:
     (JAX imagenet_init.py:259-266).
 
 The weights are state dicts (``resnet{N}.pth``,
-``tf_efficientnet_b5_ap.pth``, ``convnext_*.pth``) in a local directory:
+``tf_efficientnet_b5_ap.pth``, ``<backbone>.pth`` of a Unet backbone, its
+weight-source prefix kept: ``ig_resnext101_32x8d.pth``) in a local directory:
 ``$SFMNEXT_WEIGHTS``, else ``<repo>/weights``. Nothing is fetched: an
 absent file raises ``FileNotFoundError`` with the expected path.
 ``--weights_init scratch`` skips all of this.
@@ -28,6 +29,8 @@ import torch
 import torch.nn as nn
 
 from sfmnext_tpu_torch.models.resnet import ResNetEncoder
+from sfmnext_tpu_torch.models.unet import (RESNET_PREFIXES, parse_resnet_variant,
+                                           strip_weight_alias)
 from sfmnext_tpu_torch.training.builder import resnet_layers
 
 
@@ -101,6 +104,38 @@ def load_imagenet_trunk(trunk: nn.Module, fname: str, rename=None) -> None:
     trunk.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=False)
 
 
+def _no_converter(backbone: str, why: str = "") -> NotImplementedError:
+    return NotImplementedError(f"no ImageNet-init converter for backbone {backbone!r}{why}; "
+                               "pass '--weights_init scratch'")
+
+
+def load_imagenet_unet(trunk: nn.Module, backbone: str) -> None:
+    """``<backbone>.pth`` (timm's names, which the port's trunks keep) into
+    a Unet's trunk, for the families the JAX package converts
+    (imagenet_init.py:168-212): ConvNeXt, ResNetV2 / BiT, ResNeSt and the
+    ResNet variants but ResNet-RS and GroupNorm (the JAX converters read
+    BatchNorm statistics there). Res2Net, SK-ResNet and SENet-154 have no
+    converter there and raise here."""
+    name = strip_weight_alias(backbone)
+    fname = f"{backbone}.pth"
+    if name.startswith("convnext"):
+        return load_imagenet_trunk(trunk, fname, _convnext_keys)
+    if name.startswith(("resnetv2_", "resnest")):
+        return load_imagenet_trunk(trunk, fname)
+    if name.startswith(RESNET_PREFIXES + ("gluon_",)) and not name.startswith("resnetrs"):
+        try:
+            kw = parse_resnet_variant(name)
+        except ValueError as e:
+            raise _no_converter(backbone, f" ({e})") from e
+        weights_path(fname)  # a missing file raises first, as in JAX
+        if kw["norm"] == "gn":
+            raise NotImplementedError(
+                f"ImageNet-init converter does not cover backbone {backbone!r} (missing key "
+                "'bn1.running_mean'); pass '--weights_init scratch'")
+        return load_imagenet_trunk(trunk, fname)
+    raise _no_converter(backbone)
+
+
 def apply_weights_init(opt, models) -> None:
     """ImageNet weights into the depth encoder's trunk (its decoder stays
     random, as in the reference; ``resnet18_lite`` takes ResNet-18 whatever
@@ -110,10 +145,10 @@ def apply_weights_init(opt, models) -> None:
         return
     if opt.backbone == "eff_b5":
         load_imagenet_trunk(models.encoder.encoder.original_model, "tf_efficientnet_b5_ap.pth")
-    elif opt.backbone.startswith("convnext"):
-        load_imagenet_trunk(models.encoder.encoder, f"{opt.backbone}.pth", _convnext_keys)
-    else:
+    elif opt.backbone in ("resnet", "resnet_lite", "resnet18_lite"):
         load_imagenet_resnet(models.encoder.encoder, resnet_layers(opt))
+    else:
+        load_imagenet_unet(models.encoder.encoder, opt.backbone)
     if getattr(models, "pose_encoder", None) is not None:  # separate_resnet
         load_imagenet_resnet(models.pose_encoder, 18, num_input_images=opt.num_pose_frames)
     if models.rectify is not None:

@@ -23,17 +23,19 @@ def _to_torch(sd) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
 
 
-def from_jax_variables(variables) -> Dict[str, Dict[str, torch.Tensor]]:
+def from_jax_variables(variables, backbone: str = None) -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX ``{"params", "batch_stats"}`` (arrays or numpy) -> the port's
     state dicts ``{"encoder", "depth"[, "pose_encoder"][, "pose"][, "rectify"]
     [, "predictive_mask"]}``, BatchNorm running statistics included; the
-    encoder a ResNet, EfficientNet-B5 or ConvNeXt-Unet encoder-decoder;
+    encoder a ResNet or EfficientNet-B5 encoder-decoder or a Unet of any
+    family the port builds (a ResNet-variant Unet needs its ``backbone``);
     ``"pose"`` a PoseCNN or a PoseDecoder, by its tree's names, with the
     separate ResNet-18 ``"pose_encoder"`` when the tree holds one; the
     others when the tree holds them."""
     params, stats = variables["params"], variables["batch_stats"]
     out = {
-        "encoder": _to_torch(torch_export.export_encoder(params["encoder"], stats["encoder"])),
+        "encoder": _to_torch(torch_export.export_encoder(params["encoder"], stats["encoder"],
+                                                         backbone)),
         "depth": _to_torch(torch_export.export_sql_decoder(params["depth"])),
     }
     if "pose_encoder" in params:

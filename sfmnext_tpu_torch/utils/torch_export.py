@@ -1,11 +1,13 @@
 """Name maps from the JAX package's parameter trees to the reference's
-state-dict keys, in numpy only.
+state-dict keys, in numpy (a ResNet variant's name is read by
+``models/unet.parse_resnet_variant``).
 
 The port's own copy of the maps it needs from
 ``sfmnext_tpu/utils/torch_export.py`` (the ResNet, EfficientNet-B5 and
 ConvNeXt-Unet encoder-decoders, SQL decoder, PoseCNN, RectifyNet), with
-maps of its own for the trees that file does not export (the PoseDecoder,
-the separate ResNet-18 pose encoder, the predictive mask), so that loading
+maps of its own for the trees that file does not export (the Unet's
+ResNet-family trunks, the PoseDecoder, the separate ResNet-18 pose
+encoder, the predictive mask), so that loading
 JAX-trained weights imports nothing of the JAX package. The trees are nested dicts of arrays (anything ``np.asarray``
 takes); flax's ``HWIO`` convolution kernels become ``OIHW`` and dense
 kernels are transposed.
@@ -13,6 +15,7 @@ kernels are transposed.
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -68,29 +71,6 @@ def _blocks(tree, prefix):
     return [depths[si] for si in sorted(depths)]
 
 
-def _put_resnet(sd, prefix, params, batch_stats) -> None:
-    """A ResNetEncoder tree under torchvision's names after ``prefix``."""
-    _put_conv(sd, prefix + "conv1", params["conv1"])
-    _put_bn(sd, prefix + "bn1", params["bn1"]["BatchNorm_0"],
-            batch_stats["bn1"]["BatchNorm_0"])
-    for name, blk in params.items():
-        if not name.startswith("layer"):
-            continue
-        stage, idx = name.replace("layer", "").split("_")
-        dst = f"{prefix}layer{stage}.{idx}"
-        for c in ("conv1", "conv2", "conv3"):
-            if c in blk:
-                _put_conv(sd, f"{dst}.{c}", blk[c])
-        for b in ("bn1", "bn2", "bn3"):
-            if b in blk:
-                _put_bn(sd, f"{dst}.{b}", blk[b]["BatchNorm_0"],
-                        batch_stats[name][b]["BatchNorm_0"])
-        if "down_conv" in blk:
-            _put_conv(sd, f"{dst}.downsample.0", blk["down_conv"])
-            _put_bn(sd, f"{dst}.downsample.1", blk["down_bn"]["BatchNorm_0"],
-                    batch_stats[name]["down_bn"]["BatchNorm_0"])
-
-
 def export_resnet_encoder_decoder(params, batch_stats) -> Dict[str, np.ndarray]:
     """ResnetEncoderDecoder tree -> reference state-dict keys."""
     sd: Dict[str, np.ndarray] = {}
@@ -134,29 +114,9 @@ def export_base_encoder_decoder(params, batch_stats) -> Dict[str, np.ndarray]:
     return sd
 
 
-def export_convnext_unet(params, batch_stats) -> Dict[str, np.ndarray]:
-    """Unet(convnext_*) tree -> reference ``encoder.pth`` keys (timm
-    ``encoder.*``, ``decoder.blocks.<i>.conv<j>.{conv,bn}``,
-    ``decoder.final_conv``); the encoder's blocks are read off the tree's
-    ``stage<i>_block<j>`` names."""
-    sd: Dict[str, np.ndarray] = {}
-    enc = params["encoder"]
-    _put_conv(sd, "encoder.stem.0", enc["stem_conv"])
-    _put_ln(sd, "encoder.stem.1", enc["stem_norm"])
-    for si, depth in enumerate(_blocks(enc, "stage")):
-        if si > 0:
-            _put_ln(sd, f"encoder.stages.{si}.downsample.0", enc[f"down{si}_norm"])
-            _put_conv(sd, f"encoder.stages.{si}.downsample.1", enc[f"down{si}_conv"])
-        for bi in range(depth):
-            blk = enc[f"stage{si}_block{bi}"]
-            dst = f"encoder.stages.{si}.blocks.{bi}"
-            _put_conv(sd, f"{dst}.dwconv", blk["dwconv"])
-            _put_ln(sd, f"{dst}.norm", blk["norm"])
-            for pw in ("pwconv1", "pwconv2"):
-                sd[f"{dst}.{pw}.weight"] = _lin_w(blk[pw]["kernel"])
-                sd[f"{dst}.{pw}.bias"] = np.asarray(blk[pw]["bias"])
-            sd[f"{dst}.gamma"] = np.asarray(blk["gamma"])
-    dec_p, dec_s = params["decoder"], batch_stats["decoder"]
+def _put_unet_decoder(sd, dec_p, dec_s) -> None:
+    """The Unet's decoder under ``decoder.blocks.<i>.conv<j>.{conv,bn}`` and
+    ``decoder.final_conv``."""
     for i in range(sum(1 for k in dec_p if k.startswith("block"))):
         for c in (1, 2):
             node = dec_p[f"block{i}"][f"conv{c}"]
@@ -165,18 +125,264 @@ def export_convnext_unet(params, batch_stats) -> Dict[str, np.ndarray]:
             _put_bn(sd, f"{dst}.bn", node["bn"]["BatchNorm_0"],
                     dec_s[f"block{i}"][f"conv{c}"]["bn"]["BatchNorm_0"])
     _put_conv(sd, "decoder.final_conv", dec_p["final_conv"])
+
+
+def _put_convnext(sd, prefix, enc) -> None:
+    """A ConvNeXt trunk under timm's names; the blocks are read off the
+    tree's ``stage<i>_block<j>`` names."""
+    _put_conv(sd, prefix + "stem.0", enc["stem_conv"])
+    _put_ln(sd, prefix + "stem.1", enc["stem_norm"])
+    for si, depth in enumerate(_blocks(enc, "stage")):
+        if si > 0:
+            _put_ln(sd, f"{prefix}stages.{si}.downsample.0", enc[f"down{si}_norm"])
+            _put_conv(sd, f"{prefix}stages.{si}.downsample.1", enc[f"down{si}_conv"])
+        for bi in range(depth):
+            blk = enc[f"stage{si}_block{bi}"]
+            dst = f"{prefix}stages.{si}.blocks.{bi}"
+            _put_conv(sd, f"{dst}.dwconv", blk["dwconv"])
+            _put_ln(sd, f"{dst}.norm", blk["norm"])
+            for pw in ("pwconv1", "pwconv2"):
+                sd[f"{dst}.{pw}.weight"] = _lin_w(blk[pw]["kernel"])
+                sd[f"{dst}.{pw}.bias"] = np.asarray(blk[pw]["bias"])
+            sd[f"{dst}.gamma"] = np.asarray(blk["gamma"])
+
+
+def export_convnext_unet(params, batch_stats) -> Dict[str, np.ndarray]:
+    """Unet(convnext_*) tree -> reference ``encoder.pth`` keys (timm
+    ``encoder.*``, ``decoder.blocks.<i>.conv<j>.{conv,bn}``,
+    ``decoder.final_conv``)."""
+    sd: Dict[str, np.ndarray] = {}
+    _put_convnext(sd, "encoder.", params["encoder"])
+    _put_unet_decoder(sd, params["decoder"], batch_stats["decoder"])
     return sd
 
 
-def export_encoder(params, batch_stats) -> Dict[str, np.ndarray]:
-    """Any depth encoder-decoder tree the port builds, by its trunk's names:
-    a ResNet (``conv1``), an EfficientNet (``conv_stem``) or a ConvNeXt
-    (``stem_conv``)."""
-    trunk = params["encoder"]
-    if "conv_stem" in trunk:
+def _put_norm(sd, dst, pnode, snode) -> None:
+    """A BatchNorm (``{"BatchNorm_0": ...}``, statistics in ``snode``), a
+    GroupNorm (``scale`` / ``bias``) or an EvoNorm-S0 (and ``v``)."""
+    if "BatchNorm_0" in pnode:
+        _put_bn(sd, dst, pnode["BatchNorm_0"], snode["BatchNorm_0"])
+        return
+    _put_ln(sd, dst, pnode)
+    if "v" in pnode:
+        sd[dst + ".v"] = np.asarray(pnode["v"])
+
+
+def _layers(tree):
+    """The tree's ``layer<s>_<i>`` blocks as (name, "layer<s>.<i>")."""
+    out = []
+    for name in tree:
+        m = re.fullmatch(r"layer(\d+)_(\d+)", name)
+        if m:
+            out.append((int(m.group(1)), int(m.group(2)), name))
+    return [(name, f"layer{s}.{i}") for s, i, name in sorted(out)]
+
+
+def _put_shortcut(sd, dst, p, s, after_pool) -> None:
+    if "down_conv" in p:
+        j = 1 if after_pool else 0
+        _put_conv(sd, f"{dst}.downsample.{j}", p["down_conv"])
+        _put_norm(sd, f"{dst}.downsample.{j + 1}", p["down_bn"], s.get("down_bn"))
+
+
+def _put_resnet(sd, prefix, enc, stats, avg_down=False) -> None:
+    """A ``ResNet`` trunk of any variant under torchvision's and timm's names
+    after ``prefix``; ``avg_down``: the shortcut after its pool
+    (``downsample.{1,2}``), which the tree does not show."""
+    if "conv1_0" in enc:  # the deep stem: conv1.{0,3,6} with conv1.{1,4} and bn1
+        for i, (c, b) in enumerate((("conv1.0", "conv1.1"), ("conv1.3", "conv1.4"),
+                                    ("conv1.6", "bn1"))):
+            _put_conv(sd, prefix + c, enc[f"conv1_{i}"])
+            _put_norm(sd, prefix + b, enc[f"bn1_{i}"], stats.get(f"bn1_{i}"))
+    else:
+        _put_conv(sd, prefix + "conv1", enc["conv1"])
+        _put_norm(sd, prefix + "bn1", enc["bn1"], stats.get("bn1"))
+    if "stem_pool_conv" in enc:
+        _put_conv(sd, prefix + "maxpool.0", enc["stem_pool_conv"])
+        _put_norm(sd, prefix + "maxpool.1", enc["stem_pool_bn"], stats.get("stem_pool_bn"))
+    for name, dst in _layers(enc):
+        p, s = enc[name], stats.get(name, {})
+        dst = prefix + dst
+        for k in (1, 2, 3):
+            if f"conv{k}" in p:
+                _put_conv(sd, f"{dst}.conv{k}", p[f"conv{k}"])
+                _put_norm(sd, f"{dst}.bn{k}", p[f"bn{k}"], s.get(f"bn{k}"))
+        if "se_fc1" in p:
+            _put_conv(sd, f"{dst}.se.fc1", p["se_fc1"])
+            _put_conv(sd, f"{dst}.se.fc2", p["se_fc2"])
+        if "eca_conv" in p:  # flax [k, 1, 1] -> Conv1d [1, 1, k]
+            sd[f"{dst}.se.conv.weight"] = np.transpose(np.asarray(p["eca_conv"]["kernel"]),
+                                                       (2, 1, 0))
+        _put_shortcut(sd, dst, p, s, avg_down)
+
+
+def _put_senet154(sd, prefix, enc, stats) -> None:
+    for i in range(3 if "stem0" in enc else 0):
+        _put_conv(sd, f"{prefix}layer0.conv{i + 1}", enc[f"stem{i}"])
+        _put_norm(sd, f"{prefix}layer0.bn{i + 1}", enc[f"stem{i}_bn"], stats[f"stem{i}_bn"])
+    for name, dst in _layers(enc):
+        p, s = enc[name], stats[name]
+        dst = prefix + dst
+        for k in (1, 2, 3):
+            _put_conv(sd, f"{dst}.conv{k}", p[f"conv{k}"])
+            _put_norm(sd, f"{dst}.bn{k}", p[f"bn{k}"], s[f"bn{k}"])
+        _put_conv(sd, f"{dst}.se_module.fc1", p["se_fc1"])
+        _put_conv(sd, f"{dst}.se_module.fc2", p["se_fc2"])
+        _put_shortcut(sd, dst, p, s, False)
+
+
+def _put_resnest(sd, prefix, enc, stats) -> None:
+    stem = (("conv1.0", "conv1.1"), ("conv1.3", "conv1.4"), ("conv1.6", "bn1"))
+    for i, (c, b) in enumerate(stem if "conv1_0" in enc else ()):
+        _put_conv(sd, prefix + c, enc[f"conv1_{i}"])
+        _put_norm(sd, prefix + b, enc[f"bn1_{i}"], stats[f"bn1_{i}"])
+    for name, dst in _layers(enc):
+        p, s = enc[name], stats[name]
+        dst = prefix + dst
+        _put_conv(sd, f"{dst}.conv1", p["conv1"])
+        _put_norm(sd, f"{dst}.bn1", p["bn1"], s["bn1"])
+        sa_p, sa_s = p["conv2"], s["conv2"]
+        for c in ("conv", "fc1", "fc2"):
+            _put_conv(sd, f"{dst}.conv2.{c}", sa_p[c])
+        for b in ("bn0", "bn1"):
+            _put_norm(sd, f"{dst}.conv2.{b}", sa_p[b], sa_s[b])
+        _put_conv(sd, f"{dst}.conv3", p["conv3"])
+        _put_norm(sd, f"{dst}.bn3", p["bn3"], s["bn3"])
+        _put_shortcut(sd, dst, p, s, True)
+
+
+def _put_res2net(sd, prefix, enc, stats) -> None:
+    if "conv1" in enc:
+        _put_conv(sd, prefix + "conv1", enc["conv1"])
+        _put_norm(sd, prefix + "bn1", enc["bn1"], stats["bn1"])
+    for name, dst in _layers(enc):
+        p, s = enc[name], stats[name]
+        dst = prefix + dst
+        for k in (1, 3):
+            _put_conv(sd, f"{dst}.conv{k}", p[f"conv{k}"])
+            _put_norm(sd, f"{dst}.bn{k}", p[f"bn{k}"], s[f"bn{k}"])
+        i = 0
+        while f"conv2_{i}" in p:
+            _put_conv(sd, f"{dst}.convs.{i}", p[f"conv2_{i}"])
+            _put_norm(sd, f"{dst}.bns.{i}", p[f"bn2_{i}"], s[f"bn2_{i}"])
+            i += 1
+        _put_shortcut(sd, dst, p, s, False)
+
+
+def _put_sknet(sd, prefix, enc, stats) -> None:
+    if "conv1" in enc:
+        _put_conv(sd, prefix + "conv1", enc["conv1"])
+        _put_norm(sd, prefix + "bn1", enc["bn1"], stats["bn1"])
+    for name, dst in _layers(enc):
+        p, s = enc[name], stats[name]
+        dst = prefix + dst
+        basic = "conv2" in p  # the basic block: SK in place of conv1, then conv2/bn2
+        sk = f"{dst}.conv1" if basic else f"{dst}.conv2"
+        for j in (0, 1):
+            _put_conv(sd, f"{sk}.paths.{j}.conv", p["sk"][f"path{j}_conv"])
+            _put_norm(sd, f"{sk}.paths.{j}.bn", p["sk"][f"path{j}_bn"], s["sk"][f"path{j}_bn"])
+        _put_conv(sd, f"{sk}.attn.fc_reduce", p["sk"]["attn_reduce"])
+        _put_norm(sd, f"{sk}.attn.bn", p["sk"]["attn_bn"], s["sk"]["attn_bn"])
+        _put_conv(sd, f"{sk}.attn.fc_select", p["sk"]["attn_select"])
+        for k in ((2,) if basic else (1, 3)):
+            _put_conv(sd, f"{dst}.conv{k}.conv", p[f"conv{k}"])
+            _put_norm(sd, f"{dst}.conv{k}.bn", p[f"bn{k}"], s[f"bn{k}"])
+        _put_shortcut(sd, dst, p, s, False)
+
+
+def _put_resnetv2(sd, prefix, enc, stats) -> None:
+    def conv(dst, node):  # a WSConv holds its kernel, a plain conv one under "conv"
+        _put_conv(sd, dst, node.get("conv", node))
+
+    if "stem0" in enc:
+        for i in range(3):
+            conv(f"{prefix}stem.conv{i + 1}", enc[f"stem{i}"])
+    elif "stem" in enc:
+        conv(prefix + "stem.conv", enc["stem"])
+
+    def norm(dst, pnode, snode):  # _NormAct's norm under "norm", EvoNorm's params bare
+        _put_norm(sd, dst, pnode.get("norm", pnode), (snode or {}).get("norm"))
+
+    for si, depth in enumerate(_blocks(enc, "stage")):
+        for bi in range(depth):
+            name = f"stage{si}_block{bi}"
+            p, s = enc[name], stats.get(name, {})
+            dst = f"{prefix}stages.{si}.blocks.{bi}"
+            for k, jax_norm in ((1, "preact"), (2, "na1"), (3, "na2")):
+                norm(f"{dst}.norm{k}", p[jax_norm], s.get(jax_norm))
+                conv(f"{dst}.conv{k}", p[f"conv{k}"])
+            if "down_conv" in p:
+                conv(f"{dst}.downsample.conv", p["down_conv"])
+    if "norm" in enc:
+        norm(prefix + "norm", enc["norm"], stats.get("norm"))
+
+
+def _resnet_family_avg_down(backbone) -> bool:
+    from sfmnext_tpu_torch.models.unet import parse_resnet_variant, strip_weight_alias
+
+    return parse_resnet_variant(strip_weight_alias(backbone))["avg_down"]
+
+
+def _family(enc) -> str:
+    """The family of a Unet trunk's tree, by its names."""
+    first = next(iter(_layers(enc)), (None,))[0]
+    block = enc.get(first, {})
+    if "stem_conv" in enc:
+        return "convnext"
+    if "stage0_block0" in enc:
+        return "resnetv2"
+    if "stem0_bn" in enc:
+        return "senet154"
+    if isinstance(block.get("conv2"), dict) and "fc1" in block["conv2"]:
+        return "resnest"
+    if "conv2_0" in block:
+        return "res2net"
+    if "sk" in block:
+        return "sknet"
+    return "resnet"
+
+
+def export_trunk(params, batch_stats, avg_down=None, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A Unet trunk's tree (any family the port builds, or a part of one:
+    a stem is optional) -> timm's names after ``prefix``, the family told
+    by the tree's names. A ResNet variant's shortcut layout, which its tree
+    does not show, is ``avg_down``, a bool for such a tree."""
+    sd: Dict[str, np.ndarray] = {}
+    family = _family(params)
+    if family == "convnext":
+        _put_convnext(sd, prefix, params)
+    elif family == "resnet":
+        if avg_down is None:
+            raise ValueError("a ResNet variant's export needs avg_down (its backbone's name)")
+        _put_resnet(sd, prefix, params, batch_stats, avg_down)
+    else:
+        {"resnetv2": _put_resnetv2, "senet154": _put_senet154, "resnest": _put_resnest,
+         "res2net": _put_res2net, "sknet": _put_sknet}[family](sd, prefix, params, batch_stats)
+    return sd
+
+
+def export_unet(params, batch_stats, backbone: str = None) -> Dict[str, np.ndarray]:
+    """A Unet tree of any family the port builds -> reference ``encoder.pth``
+    keys (timm's ``encoder.*`` names, the decoder's); ``backbone`` names a
+    ResNet variant's shortcut layout."""
+    enc = params["encoder"]
+    avg_down = None
+    if _family(enc) == "resnet" and backbone is not None:
+        avg_down = _resnet_family_avg_down(backbone)
+    sd = export_trunk(enc, batch_stats.get("encoder", {}), avg_down, "encoder.")
+    _put_unet_decoder(sd, params["decoder"], batch_stats["decoder"])
+    return sd
+
+
+def export_encoder(params, batch_stats, backbone: str = None) -> Dict[str, np.ndarray]:
+    """Any depth encoder-decoder tree the port builds, by its names: an
+    EfficientNet (``conv_stem``) or a ResNet (``conv1``) under DecoderBN, or
+    a Unet (its decoder's ``final_conv``) of any family (``export_unet``,
+    which takes ``backbone`` for a ResNet variant)."""
+    if "final_conv" in params["decoder"]:
+        return export_unet(params, batch_stats, backbone)
+    if "conv_stem" in params["encoder"]:
         return export_base_encoder_decoder(params, batch_stats)
-    if "stem_conv" in trunk:
-        return export_convnext_unet(params, batch_stats)
     return export_resnet_encoder_decoder(params, batch_stats)
 
 

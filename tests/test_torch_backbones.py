@@ -390,11 +390,13 @@ def test_init_follows_the_jax_initialisers():
     assert mb.bn2.momentum == 0.01 and mb.bn2.eps == 1e-3
 
 
-@pytest.mark.parametrize("backbone", ["resnet50d", "densenet121", "efficientnet_b3",
-                                      "regnety_040"])
+@pytest.mark.parametrize("backbone", ["resnet33ts", "gluon_xception65", "densenet121",
+                                      "efficientnet_b3", "regnety_040"])
 def test_unported_backbone_raises(backbone):
-    """The Unet zoo but ConvNeXt, the ResNet variants (``resnet50d``: deep
-    stem and avg-down) among it, raises naming its ROADMAP item."""
+    """The Unet zoo but the ConvNeXt and ResNet families raises naming its
+    ROADMAP item: a bring-your-own-blocks ResNet (``resnet33ts``) and
+    ``gluon_xception65``, which the JAX dispatch takes before the ResNet
+    family their prefixes would reach, among it."""
     opt = parse_options(["--backbone", backbone])
     with pytest.raises(NotImplementedError,
                        match=f"Unet backbone '{backbone}'.*ROADMAP.md queue 1 item 12"):

@@ -69,6 +69,9 @@ predictive mask (the SSIM forward and backward once, no identity min),
 and one with the shared pose net over all frames (every temporal frame
 through the depth encoder in one batch), launch as the flagship step
 does otherwise, and their losses agree with the plain route's to 1e-2.
+One Unet for each option of the ResNet family (``OPTION_NAMES``) gives a float32
+eval forward on the card within 1e-4 of the CPU's largest value, and a
+finite bf16 forward.
 """
 
 import dataclasses
@@ -82,6 +85,7 @@ from sfmnext_tpu_torch.data import augment
 from sfmnext_tpu_torch.finetune import trainer as finetune
 from sfmnext_tpu_torch.ops import (jitter_kernel, sql_attention, sql_kernel, ssim_kernel, warp,
                                    warp_kernel)
+from sfmnext_tpu_torch.tools.backbone_coverage import OPTION_NAMES
 from sfmnext_tpu_torch.training.builder import build_models
 
 pytestmark = pytest.mark.cuda
@@ -872,3 +876,27 @@ def test_pose_and_mask_steps_launch_and_agree_with_the_plain_step(dev, name):
     assert ("predictive_mask" in aux["outputs"]) == base.predictive_mask
     assert all(torch.isfinite(torch.tensor(losses)))
     assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1]), losses
+
+
+@pytest.mark.parametrize("name", OPTION_NAMES)
+def test_zoo_unet_forward_matches_the_cpu(dev, name):
+    """The float32 eval-mode forward on the card within 1e-4 of the CPU's
+    largest value, and a finite bf16 forward, with the same weights."""
+    from sfmnext_tpu_torch.models.unet import Unet
+
+    dec = (64, 48, 32, 16)
+    with torch.device("meta"):
+        model = Unet(name, 16, dec)
+        half = Unet(name, 16, dec, dtype=torch.bfloat16)
+    model.to_empty(device="cpu").init_weights(torch.Generator().manual_seed(0))
+    x = torch.rand(2, 3, 64, 96, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = model.eval()(x)
+    model.to(dev)
+    with torch.inference_mode():
+        got = model(x.to(dev)).cpu()
+    assert got.shape == want.shape == (2, 16, 32, 48)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    half.to_empty(device=dev).load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        assert torch.isfinite(half.eval()(x.to(dev))).all()

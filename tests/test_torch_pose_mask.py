@@ -49,7 +49,7 @@ from sfmnext_tpu.training.builder import build_models as jax_build_models, init_
 from sfmnext_tpu.utils import imagenet_init as jax_imagenet_init
 from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.models import PredictiveMask
-from sfmnext_tpu_torch.models.resnet import ResNetEncoder, _Trunk
+from sfmnext_tpu_torch.models.resnet import ResNet
 from sfmnext_tpu_torch.ops import geometry
 from sfmnext_tpu_torch.training import pipeline
 from sfmnext_tpu_torch.training.builder import build_models
@@ -290,7 +290,7 @@ def test_imagenet_init_matches_jax(jax_run, tmp_path, monkeypatch):
     resnet50.pth is written), and so does the 2-image pose encoder, its
     stem tiled and halved: both packages' inits agree."""
     g = torch.Generator().manual_seed(9)
-    sd = {k: torch.randn(v.shape, generator=g) for k, v in _Trunk(18).state_dict().items()
+    sd = {k: torch.randn(v.shape, generator=g) for k, v in ResNet(18).state_dict().items()
           if not k.endswith("num_batches_tracked")}
     sd["fc.weight"], sd["fc.bias"] = torch.randn(1000, 512), torch.randn(1000)
     torch.save(sd, tmp_path / "resnet18.pth")
@@ -357,8 +357,10 @@ def test_predictive_mask_conditions_raise(flags, words):
 
 
 def test_resnet_variants_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        ResNetEncoder(50, avg_down=True)
+    """The JAX ResNetEncoder's options are ported on the trunk
+    (tests/test_torch_resnet_zoo.py); an option it does not have raises."""
+    with pytest.raises(TypeError, match="bogus"):
+        ResNet(50, bogus=True)
 
 
 @pytest.mark.parametrize("flags", [["--pose_model_type", "separate_resnet"],

@@ -37,7 +37,7 @@ from PIL import Image
 from sfmnext_tpu_torch.config import parse_options
 from sfmnext_tpu_torch.data.loader import PrefetchLoader
 from sfmnext_tpu_torch.data.synthetic import SyntheticDriveDataset
-from sfmnext_tpu_torch.models.resnet import _Trunk
+from sfmnext_tpu_torch.models.resnet import ResNet
 from sfmnext_tpu_torch.training.builder import build_models
 from sfmnext_tpu_torch.training.step import make_optimizer, make_train_step
 from sfmnext_tpu_torch.training.trainer import Trainer, seed_step
@@ -217,7 +217,7 @@ def test_pretrained_init_takes_torchvision_resnet18(tmp_path, monkeypatch):
     """A torchvision-format file (``fc`` head, no ``num_batches_tracked``)
     into the depth encoder's trunk and RectifyNet's 2-image trunk."""
     g = torch.Generator().manual_seed(9)
-    sd = {k: torch.randn(v.shape, generator=g) for k, v in _Trunk(18).state_dict().items()
+    sd = {k: torch.randn(v.shape, generator=g) for k, v in ResNet(18).state_dict().items()
           if not k.endswith("num_batches_tracked")}
     sd["fc.weight"], sd["fc.bias"] = torch.randn(1000, 512), torch.randn(1000)
     torch.save(sd, tmp_path / "resnet18.pth")
